@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's two paths on one CUDA card, through the hand-written
+Drives the port's three paths on one CUDA card, through the hand-written
 Hopper kernels, all built from the sources under
 ``src/repro_torch/kernels/*/csrc/`` at first use (one ``nvcc`` each,
 started together):
@@ -16,7 +16,16 @@ started together):
   ``flash_attention`` kernel and decode through ``paged_attention``,
   with the KV pool under Clock2Q+ and a host tier.  Both kernels are
   held against their plain versions at granite's widths, and the decode
-  path against a teacher-forced prefill on a 4-layer fp32 cut.
+  path against a teacher-forced prefill on a 4-layer fp32 cut;
+* the SSM and hybrid models through the model API (``prefill``, then
+  greedy ``decode`` steps): ``falcon-mamba-7b`` and ``zamba2-2.7b`` at
+  full width and depth (random bf16 weights), Mamba1's selective scan
+  through the ``mamba_scan`` kernel and the hybrid's shared attention
+  block through ``flash_attention``.  The scan kernel is held against
+  its plain version (B and C strided as the model hands them over),
+  ``flash_attention`` against its plain version on the shared block's
+  own q, k, v at the hybrid's prefill shape, and each model's decode
+  path against a teacher-forced prefill on an fp32 cut.
 
 Each phase prints one JSON line.  Then come the ``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -29,6 +38,7 @@ so does a machine without CUDA.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -363,10 +373,7 @@ def serve_main(dev):
 
 def serve_profile(dev, api, params):
     """A short serving run (4 requests of the same shape, 8 new tokens
-    each, a fresh pool) under ``torch.profiler``: the device's busy share
-    of the wall time (one stream, so kernel times add up without
-    overlap), and device time by kernel.  The profiler's own host cost
-    inflates the wall time, so the busy share is a lower bound."""
+    each, a fresh pool) under ``torch.profiler`` (``profile_summary``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.scheduler import SchedConfig
@@ -382,27 +389,47 @@ def serve_profile(dev, api, params):
                                          token_budget=TOKEN_BUDGET))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    del eng
+    return dict(requests=4, max_new=8, **profile_summary(
+        prof, wall, {"flash_attention": "flash_attention_kernel",
+                     "paged_attention": "paged_attention_"}))
+
+
+GEMM_KEYS = ("gemm", "nvjet", "sm90_xmma")
+
+
+def profile_summary(prof, wall: float, groups: dict) -> dict:
+    """What a ``torch.profiler`` window over ``wall`` seconds shows: the
+    device's busy share of the wall time (one stream, so kernel times add
+    up without overlap), device ms by group (``groups`` maps a group to
+    a substring of its kernels' names; then GEMMs, then the rest), the
+    launch API's host time and the top kernels.  The profiler's own host
+    cost inflates the wall time, so the busy share is a lower bound."""
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
+    # "Command Buffer Full" is the tracer's mark of a full launch queue
+    # (the host waiting on the device), not a kernel
     kernels = sorted((e for e in prof.key_averages() if dev_us(e) > 0 and
-                      not e.key.startswith("aten::")),
+                      not e.key.startswith("aten::") and
+                      e.key != "Command Buffer Full"),
                      key=dev_us, reverse=True)
+    queue_full = [e for e in prof.key_averages()
+                  if e.key == "Command Buffer Full"]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    group = {"flash_attention": 0.0, "paged_attention": 0.0, "gemm": 0.0,
-             "other": 0.0}
+    by_group = dict.fromkeys(list(groups) + ["gemm", "other"], 0.0)
     for e in kernels:
-        k = "flash_attention" if "flash_attention_kernel" in e.key else \
-            "paged_attention" if "paged_attention_" in e.key else \
-            "gemm" if any(w in e.key for w in ("gemm", "nvjet", "sm90_xmma")) \
-            else "other"
-        group[k] += dev_us(e) / 1e3
+        k = next((g for g, key in groups.items() if key in e.key), None) or (
+            "gemm" if any(w in e.key for w in GEMM_KEYS) else "other")
+        by_group[k] += dev_us(e) / 1e3
     cpu_launch = sum(e.self_cpu_time_total for e in prof.key_averages()
                      if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
-    del eng
-    return dict(requests=4, max_new=8, wall_ms=1e3 * wall,
-                device_busy_ms=busy_ms, device_busy_share=busy_ms / 1e3 / wall,
-                device_ms_by_group=group,
+    return dict(wall_ms=1e3 * wall, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / 1e3 / wall,
+                device_ms_by_group=by_group,
                 launch_api_cpu_ms=cpu_launch / 1e3,
+                launch_queue_full=dict(
+                    count=sum(e.count for e in queue_full),
+                    ms=sum(dev_us(e) for e in queue_full) / 1e3),
                 kernel_launches=sum(e.count for e in kernels),
                 top=[dict(name=e.key[:70], ms=dev_us(e) / 1e3, calls=e.count)
                      for e in kernels[:8]])
@@ -538,6 +565,364 @@ def attn_kernel_time(dev, lengths):
         l2_flush_bytes=flush.numel() * 4)
 
 
+# -- the SSM and hybrid paths ------------------------------------------------------
+
+SCAN_SHAPES = [(1, 1, 8192, 16), (2, 17, 8192, 16), (1, 255, 96, 8),
+               (2, 256, 128, 4), (4, 2048, 8192, 16)]   # B, S, din, N
+SCAN_MAIN = (4, 2048, 8192, 16)  # falcon-mamba-7b's prefill: 4 x 2,048 tokens
+SCAN_DT_RANK = 256          # falcon-mamba-7b's dt_rank: x_proj's leading cols
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 2048, 32
+PROFILE_STEPS = 8
+TF_PROMPT, TF_STEPS = 512, 8     # consistency: prompt length, decoded tail
+GEN_CONSISTENCY_LAYERS = {"falcon-mamba-7b": 4, "zamba2-2.7b": 12}
+LOGIT_TOL, STATE_TOL = 2e-4, 1e-4  # relative to the reference's max |x|
+SFU_PER_CLK_SM = 16         # exponentials a clock per SM (special-function units)
+SM_CLOCK_HZ = 1.98e9        # H100 SXM maximum SM clock
+
+
+def scan_inputs(dev, shape, dtype, rng, R: int = 0):
+    """``mamba_scan`` inputs as tests/test_kernels.py makes them (dt =
+    |randn| 0.1 in fp32, A_log = randn 0.5), u/B/C in ``dtype``.  With
+    ``R``, B and C are views into one (B, S, R + 2N) tensor, as the
+    model's x_proj output hands them over."""
+    B, S, din, N = shape
+    g = lambda *s: torch.from_numpy(
+        rng.normal(0, 1, s).astype(np.float32)).to(dev)
+    u, dt = g(B, S, din).to(dtype), g(B, S, din).abs() * 0.1
+    dbc = g(B, S, R + 2 * N).to(dtype)
+    return u, dt, dbc[..., R:R + N], dbc[..., R + N:], g(din, N) * 0.5
+
+
+def mamba_scan_vs_plain(dev):
+    """The scan kernel against its plain version on the card: fp32 y and
+    h_last within 1e-4 (tests/test_kernels.py's bound); bf16 u/B/C (both
+    versions on the same rounded inputs): y within 2e-2 of max |y| and,
+    element by element, within one bf16 step (2^-7 |y|) plus 1e-4 of
+    max |y|; h_last within 1e-3.  At falcon-mamba's width (din 8192) B
+    and C are the strided views of x_proj's output (dt_rank 256) that
+    the model hands over; at the other widths they are views into one
+    (B, S, 2N) tensor."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
+
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    cases = []
+    for dt_name in ("float32", "bfloat16"):
+        for shape in SCAN_SHAPES:
+            R = SCAN_DT_RANK if shape[2] == SCAN_MAIN[2] else 0
+            ins = scan_inputs(dev, shape, getattr(torch, dt_name), rng, R=R)
+            y, h = sops.mamba_scan(*ins)
+            torch.cuda.synchronize()
+            y0, h0 = mamba_scan_plain(*ins)
+            diff = (y.float() - y0.float()).abs()
+            y_err = float(diff.max())
+            h_err = float((h - h0).abs().max())
+            y_max = float(y0.float().abs().max())
+            if dt_name == "float32":
+                y_tol, h_tol, elem_ok = 1e-4, 1e-4, True
+            else:
+                y_tol, h_tol = 2e-2 * y_max, 1e-3
+                elem_ok = bool((diff <= 2.0 ** -7 * y0.float().abs()
+                                + 1e-4 * y_max).all())
+            require(y.dtype == y0.dtype and y_err <= y_tol and elem_ok
+                    and h_err <= h_tol,
+                    f"mamba_scan {dt_name} {shape} R={R} != plain (y err "
+                    f"{y_err} of tol {y_tol}, within one bf16 step "
+                    f"{elem_ok}, h_last err {h_err} of tol {h_tol})")
+            cases.append(dict(dtype=dt_name, shape=shape,
+                              bc_stride_t=int(ins[2].stride(1)), y_err=y_err,
+                              y_tol=y_tol, y_max=y_max,
+                              y_elementwise=None if dt_name == "float32"
+                              else "2^-7 |y| + 1e-4 max |y|",
+                              h_last_err=h_err, h_last_tol=h_tol))
+    # both versions' times at the main path's shape and types
+    flush = torch.empty(256 << 20, dtype=torch.float32, device=dev)
+    ins = scan_inputs(dev, SCAN_MAIN, torch.bfloat16, rng, R=SCAN_DT_RANK)
+    plain_ms = statistics.median(warm_ms(lambda: mamba_scan_plain(*ins),
+                                         flush, 3))
+    kernel_ms = statistics.median(warm_ms(lambda: sops.mamba_scan(*ins),
+                                          flush, 5))
+    return dict(phase="mamba_scan_vs_plain", cases=cases,
+                max_abs_err=max(max(c["y_err"], c["h_last_err"])
+                                for c in cases),
+                plain_ms=plain_ms, kernel_ms_at_plain_shape=kernel_ms,
+                plain_shape=f"bf16 u/B/C (B/C views of x_proj's output), "
+                            f"fp32 dt, (B, S, din, N) = {SCAN_MAIN}",
+                seconds=time.perf_counter() - t0)
+
+
+def hybrid_attn_vs_plain(dev):
+    """``flash_attention`` against its plain version on the q, k, v the
+    hybrid's shared block hands it in ``hybrid_main``'s prefill:
+    zamba2-2.7b's width (H = Hkv = 32, hd 80, causal), ``GEN_BATCH`` x
+    ``GEN_PROMPT`` positions, made by ``hybrid.shared_qkv`` from random
+    shared-block weights and activations (seeded generator on the card);
+    fp32 and bf16 at the attention tolerances."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.models import hybrid
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config("zamba2-2.7b"), dtype=dt,
+                                  param_dtype=dt)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = {"ln1": L.norm_params(cfg, device=dev),
+             "attn": L.attn_params(cfg, gen)}
+        x = torch.randn((GEN_BATCH, GEN_PROMPT, cfg.d_model), generator=gen,
+                        device=dev).to(L.dtype_of(cfg))
+        positions = torch.arange(GEN_PROMPT, device=dev).expand(
+            GEN_BATCH, GEN_PROMPT)
+        rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.rope_frac)
+        q, k, v = hybrid.shared_qkv(cfg, p, x, rope)
+        got = fops.flash_attention(q, k, v, causal=True)
+        want = flash_attention_plain(q, k, v, True)
+        err, ok = _err(got, want, ATTN_TOL[dt][0])
+        require(ok, f"flash_attention {dt} at the hybrid's shape "
+                    f"{tuple(q.shape)} != plain (max err {err})")
+        cases.append(dict(dtype=dt, B=q.shape[0], S=q.shape[1],
+                          H=q.shape[2], Hkv=k.shape[2], hd=q.shape[3],
+                          causal=True, q_strides=list(q.stride()),
+                          k_strides=list(k.stride()),
+                          v_strides=list(v.stride()), tol=ATTN_TOL[dt][0],
+                          max_abs_err=err))
+        del p, x, q, k, v, got, want
+    torch.cuda.empty_cache()
+    return dict(phase="hybrid_attn_vs_plain", model="zamba2-2.7b",
+                inputs="hybrid.shared_qkv of random weights and activations",
+                cases=cases, max_abs_err=max(c["max_abs_err"] for c in cases),
+                seconds=time.perf_counter() - t0)
+
+
+def _n_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(_n_params(v) for v in params.values())
+    return params.numel()
+
+
+def _greedy(logits):
+    return logits[:, -1].argmax(-1, keepdim=True)
+
+
+def generate_main(dev, arch: str, phase: str):
+    """``arch`` at its published width and depth (random bf16 weights from
+    a seeded generator on the card) through the model API: one
+    ``prefill`` of ``GEN_BATCH`` prompts of ``GEN_PROMPT`` tokens, then
+    ``GEN_STEPS`` greedy ``decode`` steps, batch long-context generation.
+    Returns the phase record (``launches``: per kernel, in that run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.models.hybrid import n_shared_invocations
+    from repro_torch.models.model import build
+
+    cfg = get_config(arch)
+    api = build(cfg)
+    gc.collect()  # earlier phases' reference cycles may still hold tensors
+    torch.cuda.empty_cache()
+    before_bytes = torch.cuda.memory_allocated(dev)  # left by earlier phases
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = torch.cuda.memory_allocated(dev) - before_bytes
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT)), device=dev)
+    max_len = GEN_PROMPT + GEN_STEPS
+    # warm-up off the counts: a short prefill and one step
+    _, c = api.prefill(params, prompts[:, :64], max_len=65)
+    api.decode(params, prompts[:, :1], c)
+    del c
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    sops.launch_count = fops.launch_count = 0
+    t1 = time.perf_counter()
+    logits, cache = api.prefill(params, prompts, max_len=max_len)
+    tokens = [_greedy(logits)]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    prefill_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s = []
+    for _ in range(GEN_STEPS):
+        t1 = time.perf_counter()
+        logits, cache = api.decode(params, tokens[-1], cache)
+        tokens.append(_greedy(logits))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    launches = dict(mamba_scan=sops.launch_count,
+                    flash_attention=fops.launch_count)
+    out = torch.cat(tokens, dim=1)
+    require(bool(torch.isfinite(logits).all()) and
+            out.shape == (GEN_BATCH, GEN_STEPS + 1) and
+            bool(((out >= 0) & (out < cfg.vocab)).all()),
+            f"{phase}: non-finite logits or tokens outside the vocabulary")
+    rec = dict(
+        phase=phase, model=cfg.name, family=cfg.family,
+        n_layers=cfg.n_layers, d_model=cfg.d_model, d_inner=cfg.d_inner,
+        ssm_state=cfg.ssm_state, dtype=cfg.dtype,
+        shared_invocations=(n_shared_invocations(cfg)
+                            if cfg.family == "hybrid" else 0),
+        n_params=_n_params(params), n_params_analytic=cfg.n_params(),
+        weights="random, torch.Generator(cuda).manual_seed(0)",
+        batch=GEN_BATCH, prompt_len=GEN_PROMPT, decode_steps=GEN_STEPS,
+        init_s=init_s, prefill_ms=1e3 * prefill_s,
+        prefill_tokens_per_s=GEN_BATCH * GEN_PROMPT / prefill_s,
+        decode_step_ms_p50=_pct(step_s, 50),
+        decode_step_ms_p99=_pct(step_s, 99),
+        decode_tokens_per_s=GEN_BATCH * GEN_STEPS / sum(step_s),
+        allocated_before_bytes=before_bytes, weight_bytes=weight_bytes,
+        init_peak_device_bytes=init_peak,
+        prefill_peak_device_bytes=prefill_peak,
+        decode_peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+        launches=launches, first_tokens=out[0, :8].tolist())
+    del cache, logits
+    rec["profile"] = generate_profile(dev, api, params, prompts)
+    del params, api
+    torch.cuda.empty_cache()
+    return rec
+
+
+def generate_profile(dev, api, params, prompts):
+    """One prefill and ``PROFILE_STEPS`` greedy decode steps under
+    ``torch.profiler`` (``profile_summary``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, prompts,
+                                    max_len=prompts.shape[1] + PROFILE_STEPS)
+        tok = _greedy(logits)
+        for _ in range(PROFILE_STEPS):
+            logits, cache = api.decode(params, tok, cache)
+            tok = _greedy(logits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return dict(prefills=1, decode_steps=PROFILE_STEPS, **profile_summary(
+        prof, wall, {"mamba_scan": "mamba_scan_kernel",
+                     "flash_attention": "flash_attention_kernel"}))
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max()) / (
+        float(want.abs().max()) + 1e-30)
+
+
+def generate_consistency(dev, arch: str, phase: str):
+    """The decode path against the prefill path on the whole model:
+    ``arch`` at full width in fp32, depth cut.  ``prefill`` of a prompt
+    less its last ``TF_STEPS`` tokens, then ``TF_STEPS`` teacher-forced
+    ``decode`` steps, against one ``prefill(prompt, full_logits=True)``
+    at the same positions: logits within 2e-4 of max |logit|
+    (tests/test_models.py's bound), the final states within 1e-4 of
+    their max |x|, and greedy picks equal, near ties (top-2 margin <
+    1e-3) reported apart."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build
+
+    t0 = time.perf_counter()
+    full_cfg = get_config(arch)
+    n = GEN_CONSISTENCY_LAYERS[arch]
+    cfg = dataclasses.replace(full_cfg, n_layers=n, dtype="float32",
+                              param_dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, TF_PROMPT)), device=dev)
+    S = TF_PROMPT
+    logits, cache = api.prefill(params, prompt[:, :S - TF_STEPS], max_len=S)
+    got = [logits[:, -1]]
+    for j in range(S - TF_STEPS, S):
+        logits, cache = api.decode(params, prompt[:, j:j + 1], cache)
+        got.append(logits[:, -1])
+    got = torch.stack(got, dim=1)                # positions S-9 .. S-1
+    full, fcache = api.prefill(params, prompt, full_logits=True, max_len=S)
+    want = full[:, S - TF_STEPS - 1:]
+    logit_err = _rel_err(got, want)
+    state_err = {f: _rel_err(getattr(cache, f), getattr(fcache, f))
+                 for f in cache._fields if f != "length"}
+    require(logit_err <= LOGIT_TOL, f"{phase}: decode logits != prefill "
+                                    f"logits (rel err {logit_err})")
+    require(all(e <= STATE_TOL for e in state_err.values()),
+            f"{phase}: decode states != prefill states {state_err}")
+    top2 = torch.topk(want.float(), 2, dim=-1)
+    margin = (top2.values[..., 0] - top2.values[..., 1])
+    pick = got.argmax(-1)
+    mismatches, ties = [], []
+    for b, i in (pick != top2.indices[..., 0]).nonzero().tolist():
+        item = dict(seq=b, pos=S - TF_STEPS - 1 + i, decode=int(pick[b, i]),
+                    prefill=int(top2.indices[b, i, 0]),
+                    margin=float(margin[b, i]))
+        (ties if item["margin"] < NEAR_TIE else mismatches).append(item)
+    require(not mismatches, f"{phase}: greedy picks differ {mismatches}")
+    rec = dict(phase=phase, model=cfg.name, dtype=cfg.dtype,
+               reduced=[f"n_layers {full_cfg.n_layers} -> {n}"],
+               batch=2, prompt_len=S, decode_steps=TF_STEPS,
+               positions_compared=int(pick.numel()), logit_rel_err=logit_err,
+               logit_tol=LOGIT_TOL, state_rel_err=state_err,
+               state_tol=STATE_TOL, mismatches=0, near_ties=ties,
+               near_tie_margin=NEAR_TIE,
+               allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+               seconds=time.perf_counter() - t0)
+    del params, api, cache, fcache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def scan_bound(shape, esize=2):
+    """(bound_ms, bound_by, bytes, bytes_ms, exps, exps_ms) of one scan
+    at ``shape``: u and y in ``esize`` bytes, dt in fp32 (read once
+    each), B and C in ``esize``, A_log and h_last in fp32; B S din N
+    exponentials at the special-function units' rate."""
+    B, S, din, N = shape
+    moved = (B * S * din * (2 * esize + 4) + 2 * B * S * N * esize
+             + 4 * din * N + 4 * B * din * N)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exps = B * S * din * N
+    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+    exps_ms = 1e3 * exps / (SFU_PER_CLK_SM * sms * SM_CLOCK_HZ)
+    by = "bytes" if bytes_ms >= exps_ms else "operations"
+    return max(bytes_ms, exps_ms), by, moved, bytes_ms, exps, exps_ms
+
+
+def mamba_scan_time(dev):
+    """CUDA-event median of 20 scan launches at the main path's shape and
+    types (B and C strided as the model hands them), L2 flushed, beside
+    its bound.  No single PyTorch call computes the selective scan, so
+    there is no library yardstick."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+
+    flush = torch.empty(256 << 20, dtype=torch.float32, device=dev)
+    ins = scan_inputs(dev, SCAN_MAIN, torch.bfloat16,
+                      np.random.default_rng(3), R=SCAN_DT_RANK)
+    before = sops.launch_count
+    runs = warm_ms(lambda: sops.mamba_scan(*ins), flush)
+    require(sops.launch_count == before + len(runs) + 1,
+            "timed scan call not one launch each")
+    bound, by, moved, bytes_ms, exps, exps_ms = scan_bound(SCAN_MAIN)
+    ms = statistics.median(runs)
+    return dict(phase="mamba_scan_time",
+                shape=f"bf16 u/B/C (B/C views of x_proj's output), fp32 dt, "
+                      f"(B, S, din, N) = {SCAN_MAIN}",
+                ms_runs=runs, ms=ms, bytes=moved, bytes_ms=bytes_ms,
+                bytes_rate=f"{HBM_BYTES_PER_S:.3g} B/s",
+                exps=exps, exps_ms=exps_ms,
+                exps_rate=f"{SFU_PER_CLK_SM} a clock per SM x "
+                          f"{torch.cuda.get_device_properties(0).multi_processor_count}"
+                          f" SMs x {SM_CLOCK_HZ:.3g} Hz",
+                bound_ms=bound, bound_by=by, roofline_share=bound / ms,
+                library_ms=None, l2_flush_bytes=flush.numel() * 4)
+
+
 def main() -> int:
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
@@ -554,6 +939,7 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.cache_sim import build, ops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba_scan import ops as sops
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.cache_sim.ref import cache_sim_plain
     from repro_torch.tuning.sweep import make_grid, relabel, sweep_hits
@@ -572,14 +958,16 @@ def main() -> int:
     t0 = time.perf_counter()
     kbuild.build_many([("cache_sim", build.SOURCE),
                        ("flash_attention", fops.SOURCE),
-                       ("paged_attention", pops.SOURCE)])
+                       ("paged_attention", pops.SOURCE),
+                       ("mamba_scan", sops.SOURCE)])
     build_s = time.perf_counter() - t0
     build.load()
     emit(dict(phase="device", device=kind, count=torch.cuda.device_count(),
               nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
               build_s=build_s, builds={
                   k: kbuild.info(k) for k in
-                  ("cache_sim", "flash_attention", "paged_attention")}))
+                  ("cache_sim", "flash_attention", "paged_attention",
+                   "mamba_scan")}))
 
     t0 = time.perf_counter()
     data = {s.name: s.data() for s in traces.SUITE}
@@ -811,6 +1199,29 @@ def main() -> int:
     emit(timing)
     pt, ft = timing["paged"], timing["flash"]
 
+    # -- the SSM and hybrid paths: scan kernel, both models, consistency -------
+    scan_check = mamba_scan_vs_plain(dev)
+    emit(scan_check)
+    ssm = generate_main(dev, "falcon-mamba-7b", "ssm_main")
+    ssm_launches = ssm["launches"]
+    want = dict(mamba_scan=ssm["n_layers"], flash_attention=0)
+    require(ssm_launches == want, f"ssm_main: launches {ssm_launches}, want "
+                                  f"{want} (one per layer, one prefill)")
+    emit(ssm)
+    emit(generate_consistency(dev, "falcon-mamba-7b", "ssm_consistency"))
+    hyb_check = hybrid_attn_vs_plain(dev)
+    emit(hyb_check)
+    hyb = generate_main(dev, "zamba2-2.7b", "hybrid_main")
+    hyb_launches = hyb["launches"]
+    want = dict(mamba_scan=0, flash_attention=hyb["shared_invocations"])
+    require(hyb_launches == want, f"hybrid_main: launches {hyb_launches}, "
+                                  f"want {want} (one per shared-block "
+                                  f"invocation, one prefill)")
+    emit(hyb)
+    emit(generate_consistency(dev, "zamba2-2.7b", "hybrid_consistency"))
+    st = mamba_scan_time(dev)
+    emit(st)
+
     emit({"kernels": [dict(
         name="cache_sim", route="cuda",
         source="src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu",
@@ -836,13 +1247,32 @@ def main() -> int:
              source="src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:25",
-             launches=serve_launches["flash_attention"],
-             max_abs_err=check["max_abs_err"]["flash"], ms=ft["ms"],
+             launches=serve_launches["flash_attention"]
+             + hyb_launches["flash_attention"],
+             launches_by_path=dict(
+                 serve_main=serve_launches["flash_attention"],
+                 hybrid_main=hyb_launches["flash_attention"]),
+             max_abs_err=max(check["max_abs_err"]["flash"],
+                             hyb_check["max_abs_err"]),
+             max_abs_err_by_path=dict(
+                 serve_main=check["max_abs_err"]["flash"],
+                 hybrid_main=hyb_check["max_abs_err"]),
+             ms=ft["ms"],
              plain_ms=check["flash_plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"],
              ms_shape=ft["shape"],
              plain_shape=check["plain_shapes"]["flash"],
-             kernel_ms_at_plain_shape=check["flash_kernel_ms"])]})
+             kernel_ms_at_plain_shape=check["flash_kernel_ms"]),
+        dict(name="mamba_scan", route="cuda",
+             source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+             replaces="src/repro/kernels/mamba_scan/mamba_scan.py:23",
+             launches=ssm_launches["mamba_scan"],
+             max_abs_err=scan_check["max_abs_err"], ms=st["ms"],
+             plain_ms=scan_check["plain_ms"], bound_ms=st["bound_ms"],
+             bound_by=st["bound_by"], library_ms=None, ms_shape=st["shape"],
+             plain_shape=scan_check["plain_shape"],
+             kernel_ms_at_plain_shape=scan_check[
+                 "kernel_ms_at_plain_shape"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,9 +1,10 @@
 """Architecture registry: ``get_config("<arch-id>")`` plus reduced configs
 for CPU smoke tests (same family/topology, tiny dims).
 
-The port's own copy of ``repro.configs``.  It registers the four dense
-architectures, which the port's model runs; the other families' configs
-come with their models (ROADMAP.md queue 1)."""
+The port's own copy of ``repro.configs``.  It registers the
+architectures whose models the port runs: the four dense ones, the SSM
+``falcon-mamba-7b`` and the hybrid ``zamba2-2.7b``; the other families'
+configs come with their models (ROADMAP.md queue 1)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from typing import Dict
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ["chatglm3-6b", "olmo-1b", "granite-3-8b", "phi3-medium-14b"]
+ARCH_IDS = ["chatglm3-6b", "olmo-1b", "granite-3-8b", "phi3-medium-14b",
+            "falcon-mamba-7b", "zamba2-2.7b"]
 
 _MODULE_OF = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
               for a in ARCH_IDS}

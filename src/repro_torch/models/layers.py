@@ -33,6 +33,34 @@ def pdtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.param_dtype]
 
 
+# -- param trees ---------------------------------------------------------------
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer(blocks: Dict, i: int) -> Dict:
+    """The params of layer ``i``: views into the stacked block leaves."""
+    return tree_map(lambda t: t[i], blocks)
+
+
+def tree_from_numpy(tree: Dict, dtype: torch.dtype, device: torch.device,
+                    keep_fp32=()) -> Dict:
+    """A tree of numpy leaves (the reference's params) as tensors on
+    ``device``: values kept exactly, cast to ``dtype``, except the leaves
+    named in ``keep_fp32``, which stay fp32 as the reference keeps
+    them."""
+    def conv(key, x):
+        if isinstance(x, dict):
+            return {k: conv(k, v) for k, v in x.items()}
+        t = torch.from_numpy(np.array(x, np.float32))
+        return t.to(device, torch.float32 if key in keep_fp32 else dtype)
+    return conv(None, tree)
+
+
 # -- initialisers -------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, shape, dtype,

@@ -1,14 +1,21 @@
 """Model API of the port.
 
-``build(cfg)`` returns a ``ModelAPI`` with the functions the serving
-engine calls:
+``build(cfg)`` returns a ``ModelAPI`` with the functions its callers
+use:
   init(generator, device=None) -> params
-  prefill(params, tokens, full_logits=False) -> (logits, KVCache)
+  prefill(params, tokens, full_logits=False[, max_len]) -> (logits, cache)
+  decode(params, tokens, cache) -> (logits, cache)
+  init_cache(batch, max_len, device=None) -> zeroed cache
   decode_paged(params, tokens, kpool, vpool, block_tables, lengths,
                slot_ids, slot_offs) -> (logits, kpool, vpool)
 
-Only the dense family is ported.  The training loss, the contiguous-cache
-``decode`` and ``init_cache`` of ``repro.models.model`` come with the
+Three families are ported.  The dense family serves through the paged
+KV pool (``decode_paged``); its contiguous-cache ``decode`` and
+``init_cache`` are queued and raise.  The SSM family (falcon-mamba,
+Mamba1 blocks on the ``mamba_scan`` kernel) and the hybrid family
+(zamba2, Mamba2 blocks plus one shared attention block) decode from
+their own state with ``decode``; like the reference's serving engine,
+the paged decode refuses them.  The training loss comes with the
 training slice; the other families raise ``NotImplementedError``.
 """
 
@@ -17,17 +24,24 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict
 
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import hybrid
+from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
 # Where the families the port does not run yet are queued.
 _QUEUED = {
-    "ssm": "ROADMAP.md queue 1, item 1 (models/mamba.py)",
-    "hybrid": "ROADMAP.md queue 1, item 1 (models/hybrid.py)",
     "moe": "ROADMAP.md queue 1, item 9 (models/moe.py)",
     "vlm": "ROADMAP.md queue 1, item 9 (the vlm frontend)",
     "encdec": "ROADMAP.md queue 1, item 11 (models/encdec.py)",
 }
+_DENSE_DECODE = ("the dense family's contiguous-cache decode (forward_decode, "
+                 "init_kv_cache) is ROADMAP.md queue 1, item 10; it serves "
+                 "through decode_paged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,23 +51,159 @@ class ModelAPI:
     cfg: ModelConfig
     init: Callable[..., Dict]
     prefill: Callable[..., Any]
+    decode: Callable[..., Any]
+    init_cache: Callable[..., Any]
     decode_paged: Callable[..., Any]
 
 
+def _raise(msg: str) -> Callable[..., Any]:
+    def fn(*args, **kw):
+        raise NotImplementedError(msg)
+    return fn
+
+
+# The leaves each family keeps fp32 whatever the parameter dtype, as the
+# reference does.
+_FP32_LEAVES = {"dense": (), "ssm": M.FP32_LEAVES["mamba1"],
+                "hybrid": M.FP32_LEAVES["mamba2"]}
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Dict, device=None) -> Dict:
+    """The reference's params of any ported family (numpy leaves, blocks
+    stacked on a leading layer axis) as the port's, on the card unless
+    ``device`` names another: values kept exactly, cast to the parameter
+    dtype, except the leaves the reference keeps fp32."""
+    keep = _FP32_LEAVES.get(cfg.family)
+    if keep is None:
+        raise NotImplementedError(f"{cfg.family!r} is not ported")
+    return L.tree_from_numpy(tree, L.pdtype_of(cfg), resolve_device(device),
+                             keep)
+
+
+def params_to_numpy(params: Dict) -> Dict:
+    """The port's params of any family as numpy (float32 leaves), the
+    reference's tree."""
+    return L.tree_map(lambda t: t.detach().float().cpu().numpy(), params)
+
+
+# ----------------------------------------------------------------------------
+# pure-SSM stack (falcon-mamba)
+# ----------------------------------------------------------------------------
+
+def _ssm_init(cfg: ModelConfig, generator: torch.Generator,
+              device=None) -> Dict:
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, params on {dev}")
+    pd = L.pdtype_of(cfg)
+    return {"embed": {"tok": L.embed_init(generator, (cfg.vocab, cfg.d_model),
+                                          pd),
+                      "final_norm": L.norm_params(cfg, device=dev),
+                      "lm_head": L.dense_init(generator,
+                                              (cfg.d_model, cfg.vocab), pd)},
+            "blocks": M.mamba1_params(cfg, generator, (cfg.n_layers,))}
+
+
+def _ssm_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                 full_logits: bool = False, max_len=None):
+    """tokens (B, S) -> (logits, SSMCache); logits at the last position
+    unless ``full_logits``.  ``max_len`` is accepted for the common API
+    and unused: the state does not grow."""
+    x = T.embed_tokens(cfg, params["embed"], tokens)
+    convs, ssms = [], []
+    for i in range(cfg.n_layers):
+        p = L.layer(params["blocks"], i)
+        x, (cs, ss) = M.mamba1_full(cfg, p, x, return_state=True)
+        convs.append(cs)
+        ssms.append(ss)
+    logits = T.lm_logits(cfg, params["embed"], x if full_logits else x[:, -1:])
+    return logits, M.SSMCache(conv=torch.stack(convs), ssm=torch.stack(ssms))
+
+
+def _ssm_decode(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                cache: M.SSMCache):
+    """tokens (B, 1) -> (logits (B, 1, V), a new SSMCache)."""
+    x = T.embed_tokens(cfg, params["embed"], tokens)
+    convs, ssms = [], []
+    for i in range(cfg.n_layers):
+        p = L.layer(params["blocks"], i)
+        x, cs, ss = M.mamba1_decode(cfg, p, x, cache.conv[i], cache.ssm[i])
+        convs.append(cs)
+        ssms.append(ss)
+    return T.lm_logits(cfg, params["embed"], x), M.SSMCache(
+        conv=torch.stack(convs), ssm=torch.stack(ssms))
+
+
+def _ssm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    device=None) -> M.SSMCache:
+    dev = resolve_device(device)
+    return M.SSMCache(
+        conv=torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                          cfg.d_inner), dtype=L.dtype_of(cfg), device=dev),
+        ssm=torch.zeros((cfg.n_layers, batch, cfg.d_inner, cfg.ssm_state),
+                        dtype=torch.float32, device=dev))
+
+
+def _hybrid_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                    full_logits: bool = False, max_len=None):
+    """tokens (B, S) -> (logits, HybridCache with KV for ``max_len``
+    positions, default S); logits at the last position unless
+    ``full_logits``."""
+    return hybrid.forward_full(cfg, params, tokens, collect_cache=True,
+                               max_len=max_len or tokens.shape[1],
+                               full_logits=full_logits)
+
+
+# ----------------------------------------------------------------------------
+# dispatcher
+# ----------------------------------------------------------------------------
+
 def build(cfg: ModelConfig) -> ModelAPI:
     """The ``ModelAPI`` of ``cfg``; raises for a family not yet ported."""
-    if cfg.family != "dense":
-        where = _QUEUED.get(cfg.family)
-        if where is None:
-            raise ValueError(f"unknown family {cfg.family!r}")
-        raise NotImplementedError(
-            f"the port runs the dense family only; {cfg.family!r} "
-            f"({cfg.name}) is {where}")
-    return ModelAPI(
-        cfg=cfg,
-        init=lambda generator, device=None: T.init_params(cfg, generator,
+    fam = cfg.family
+    if fam == "dense":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda generator, device=None: T.init_params(
+                cfg, generator, device),
+            prefill=lambda params, tokens, full_logits=False:
+                T.forward_prefill(cfg, params, tokens,
+                                  full_logits=full_logits),
+            decode=_raise(_DENSE_DECODE),
+            init_cache=_raise(_DENSE_DECODE),
+            decode_paged=lambda params, *args: T.forward_decode_paged(
+                cfg, params, *args))
+    no_paged = _raise(
+        f"the {fam} family decodes from its own state with decode(); the "
+        f"paged KV decode serves attention-only families, and the "
+        f"reference's serving engine refuses {fam!r} too")
+    if fam == "ssm":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda generator, device=None: _ssm_init(cfg, generator,
                                                           device),
-        prefill=lambda params, tokens, full_logits=False: T.forward_prefill(
-            cfg, params, tokens, full_logits=full_logits),
-        decode_paged=lambda params, *args: T.forward_decode_paged(
-            cfg, params, *args))
+            prefill=lambda params, tokens, full_logits=False, max_len=None:
+                _ssm_prefill(cfg, params, tokens, full_logits, max_len),
+            decode=lambda params, tokens, cache: _ssm_decode(
+                cfg, params, tokens, cache),
+            init_cache=lambda batch, max_len, device=None: _ssm_init_cache(
+                cfg, batch, max_len, device),
+            decode_paged=no_paged)
+    if fam == "hybrid":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda generator, device=None: hybrid.init_params(
+                cfg, generator, device),
+            prefill=lambda params, tokens, full_logits=False, max_len=None:
+                _hybrid_prefill(cfg, params, tokens, full_logits, max_len),
+            decode=lambda params, tokens, cache: hybrid.forward_decode(
+                cfg, params, tokens, cache),
+            init_cache=lambda batch, max_len, device=None: hybrid.init_cache(
+                cfg, batch, max_len, device),
+            decode_paged=no_paged)
+    where = _QUEUED.get(fam)
+    if where is None:
+        raise ValueError(f"unknown family {fam!r}")
+    raise NotImplementedError(
+        f"the port runs the dense, ssm and hybrid families; {fam!r} "
+        f"({cfg.name}) is {where}")

@@ -3,8 +3,8 @@
 The port of ``repro.models.transformer`` for the dense family, with the
 same param tree: ``{"embed": {...}, "blocks": {...}}`` where every block
 leaf is stacked on a leading layer axis and keeps the reference's
-``(in, out)`` orientation, so ``params_from_numpy`` is a plain copy of
-the reference's params.  Two entry points serve the engine:
+``(in, out)`` orientation, so ``model.params_from_numpy`` is a plain
+copy of the reference's params.  Two entry points serve the engine:
 
   * ``forward_prefill`` — full-sequence causal forward returning the KV
     cache; attention runs the ``flash_attention`` kernel.
@@ -19,7 +19,6 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -54,7 +53,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     same device.  The tree and shapes are the reference's; the values
     are the port's own (a torch generator does not give ``jax.random``'s
     numbers; tests carry the reference's params with
-    ``params_from_numpy``)."""
+    ``model.params_from_numpy``)."""
     _dense_only(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
@@ -70,34 +69,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
               "ln2": L.norm_params(cfg, (n,), device=dev),
               "mlp": L.mlp_params(cfg, generator, (n,))}
     return {"embed": embed, "blocks": blocks}
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def params_from_numpy(cfg: ModelConfig, tree: Dict, device=None) -> Dict:
-    """The reference's params (numpy leaves, blocks stacked on a leading
-    layer axis) as the port's, on the card unless ``device`` names
-    another.  Leaves keep their values exactly, cast to the config's
-    parameter dtype."""
-    _dense_only(cfg)
-    dev = resolve_device(device)
-    pd = L.pdtype_of(cfg)
-    return _tree_map(
-        lambda x: torch.from_numpy(np.array(x, np.float32)).to(dev, pd), tree)
-
-
-def params_to_numpy(params: Dict) -> Dict:
-    """The port's params as numpy (float32 leaves), the reference's tree."""
-    return _tree_map(lambda t: t.detach().float().cpu().numpy(), params)
-
-
-def layer(blocks: Dict, i: int) -> Dict:
-    """The params of layer ``i``: views into the stacked block leaves."""
-    return _tree_map(lambda t: t[i], blocks)
 
 
 # -- embedding / head ------------------------------------------------------------------
@@ -134,7 +105,7 @@ def forward_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     norm = L.make_norm(cfg)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        p = layer(params["blocks"], i)
+        p = L.layer(params["blocks"], i)
         q, k, v = L.qkv_proj(cfg, p["attn"], norm(x, p["ln1"]))
         q, k = L.rotate(q, rope), L.rotate(k, rope)
         o = flash_ops.flash_attention(q, k, v, causal=True)
@@ -172,7 +143,7 @@ def forward_decode_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     sid, soff = slot_ids.long(), slot_offs.long()
     paged_ops.check_values(block_tables, ctx, kpool.shape[1], kpool.shape[2])
     for i in range(cfg.n_layers):
-        p = layer(params["blocks"], i)
+        p = L.layer(params["blocks"], i)
         q, k, v = L.qkv_proj(cfg, p["attn"], norm(x, p["ln1"]))
         q, k = L.rotate(q, rope), L.rotate(k, rope)
         kpool[i].index_put_((sid, soff), k[:, 0])

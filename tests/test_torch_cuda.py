@@ -1,5 +1,6 @@
 """The port's Hopper kernels (``cache_sim``, ``flash_attention``,
-``paged_attention``) against their plain PyTorch versions, on a card.
+``paged_attention``, ``mamba_scan``) against their plain PyTorch
+versions, on a card.
 Every test here is marked ``cuda`` and skips without one.
 
 This file imports nothing of JAX or ``repro``, so it runs on a machine
@@ -136,3 +137,46 @@ def test_paged_attention_kernel_equals_plain(B, H, Hkv, d, N, bs, nb, dtype,
                                  lens.to(cuda_device))
     tol = ATTN_TOL[dtype][1]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# -- selective scan ------------------------------------------------------------
+
+SCAN_SHAPES = [  # B, S, din, N: tests/test_kernels.py, falcon-mamba, edges
+    (2, 64, 128, 16),
+    (1, 100, 96, 8),
+    (2, 32, 64, 4),
+    (2, 17, 8192, 16),
+    (1, 70, 256, 33),
+    (2, 100, 300, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,din,N", SCAN_SHAPES)
+def test_mamba_scan_kernel_equals_plain(B, S, din, N, dtype, cuda_device):
+    """fp32: y and h_last within 1e-4 (tests/test_kernels.py's bound);
+    bf16 u/B/C (both versions on the same rounded inputs, dt fp32): y
+    within 2e-2 of max |y| (one bf16 rounding of y), h_last within
+    1e-3."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
+    rng = np.random.default_rng(S + din + N)
+    u = _randn(rng, (B, S, din), dtype, cuda_device)
+    dt = _randn(rng, (B, S, din), torch.float32, cuda_device).abs() * 0.1
+    Bc = _randn(rng, (B, S, N), dtype, cuda_device)
+    Cc = _randn(rng, (B, S, N), dtype, cuda_device)
+    A_log = _randn(rng, (din, N), torch.float32, cuda_device) * 0.5
+    before = sops.launch_count
+    y, h = sops.mamba_scan(u, dt, Bc, Cc, A_log)
+    torch.cuda.synchronize()
+    assert sops.launch_count == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    y0, h0 = mamba_scan_plain(u, dt, Bc, Cc, A_log)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, y0, atol=1e-4, rtol=0)
+        torch.testing.assert_close(h, h0, atol=1e-4, rtol=0)
+    else:
+        scale = float(y0.float().abs().max())
+        assert float((y.float() - y0.float()).abs().max()) <= 2e-2 * scale
+        torch.testing.assert_close(h, h0, atol=1e-3, rtol=0)

@@ -20,7 +20,8 @@ from repro.configs import reduced as j_reduced
 from repro.models import transformer as JT
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import transformer as PT
-from repro_torch.models.model import build
+from repro_torch.models.model import (build, params_from_numpy,
+                                      params_to_numpy)
 
 ARCHS = ["granite-3-8b", "olmo-1b", "phi3-medium-14b", "chatglm3-6b"]
 TOL = 1e-5
@@ -34,7 +35,7 @@ def pair(request):
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
     cfg = reduced(get_config(request.param))
     tree = jax.tree_util.tree_map(np.asarray, jparams)
-    return jcfg, jparams, cfg, PT.params_from_numpy(cfg, tree, device=CPU)
+    return jcfg, jparams, cfg, params_from_numpy(cfg, tree, device=CPU)
 
 
 def _close(got: torch.Tensor, want) -> None:
@@ -98,7 +99,7 @@ def test_decode_paged_equals_reference(pair):
 def test_params_round_trip_exactly(pair):
     jcfg, jparams, cfg, params = pair
     tree = jax.tree_util.tree_map(np.asarray, jparams)
-    back = PT.params_to_numpy(PT.params_from_numpy(cfg, tree, device=CPU))
+    back = params_to_numpy(params_from_numpy(cfg, tree, device=CPU))
     flat_a = jax.tree_util.tree_leaves_with_path(tree)
     flat_b = jax.tree_util.tree_leaves_with_path(back)
     assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
@@ -119,11 +120,19 @@ def test_port_init_has_the_reference_tree_and_shapes(pair):
 def test_other_families_raise():
     import dataclasses
     cfg = dataclasses.replace(reduced(get_config("granite-3-8b")),
-                              family="ssm")
+                              family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build(cfg)
     with pytest.raises(NotImplementedError):
         PT.forward_prefill(cfg, {}, torch.zeros(1, 4, dtype=torch.long))
+
+
+def test_dense_contiguous_decode_raises():
+    api = build(reduced(get_config("granite-3-8b")))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 10"):
+        api.decode({}, torch.zeros(1, 1, dtype=torch.long), None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 10"):
+        api.init_cache(1, 8, device=CPU)
 
 
 @pytest.mark.parametrize("causal,kv_len", [(True, None), (False, None),

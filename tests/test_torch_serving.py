@@ -28,8 +28,7 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.prodcache import ProdClock2QPlus as PProd
-from repro_torch.models import transformer as PT
-from repro_torch.models.model import build
+from repro_torch.models.model import build, params_from_numpy
 from repro_torch.serving.engine import Request, ServingEngine
 
 NEAR_TIE = 1e-4
@@ -43,8 +42,8 @@ def models():
     jparams = japi.init(jax.random.PRNGKey(0))
     cfg = reduced(get_config("granite-3-8b"))
     tree = jax.tree_util.tree_map(np.asarray, jparams)
-    return japi, jparams, build(cfg), PT.params_from_numpy(cfg, tree,
-                                                           device=CPU)
+    return japi, jparams, build(cfg), params_from_numpy(cfg, tree,
+                                                        device=CPU)
 
 
 def _engines(models, **kw):
