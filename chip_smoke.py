@@ -33,10 +33,13 @@ line.  Any mismatch or error exits non-zero before the result line, and
 so does a machine without CUDA.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --previous DIR   # attention kernels of the
+                                           # checkout DIR beside these
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -74,13 +77,15 @@ def require(ok: bool, what: str) -> None:
 
 def cuda_ms(fn, reps: int = 1, flush=None) -> list:
     """CUDA-event times of ``reps`` calls of ``fn`` (ms each).  With
-    ``flush`` (a large device tensor), the L2 cache is flushed before
-    each call by zeroing it, which also keeps the card busy while the
-    host prepares the launch, so the host's overhead is not timed."""
+    ``flush`` (a large device tensor), the L2 cache is emptied before
+    each call by reading the tensor through it: that leaves clean lines,
+    so the call does not pay for writing back another kernel's data (as
+    it would after a flush by writing), and keeps the card busy while
+    the host prepares the launch, so the host's overhead is not timed."""
     out = []
     for _ in range(reps):
         if flush is not None:
-            flush.zero_()
+            flush.sum()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -130,7 +135,7 @@ def _err(got, want, tol: float):
 
 def warm_ms(fn, flush, reps: int = 20) -> list:
     """``cuda_ms`` of ``reps`` calls after one warm-up call, each with the
-    L2 cache flushed by a 1 GiB write."""
+    L2 cache emptied by a 1 GiB read."""
     fn()
     return cuda_ms(fn, reps, flush)
 
@@ -189,31 +194,41 @@ def attn_kernels_vs_plain(dev):
     rec = dict(phase="attn_kernels_vs_plain", paged=[], flash=[])
     lengths = [1, 16, 17, 1024, 2560] + [int(x) for x in
                                          rng.integers(2, 2561, 3)]
+    # a chunk, one split of a full table and one past each, the full table
+    split = pops.split_range(0, 2560, pops.plan_splits(8, 8, 2560))[1]
+    edges = [pops.CHUNK, pops.CHUNK + 1, split, split + 1, 2560, 2559, 15, 33]
+    paged_cases = [(32, 8, lengths), (32, 8, edges),
+                   (8, 8, lengths), (32, 2, edges)]   # groups 4, 4, 1, 16
     for dt in ("float32", "bfloat16"):
-        args = paged_inputs(dev, getattr(torch, dt), lengths, rng)
-        got = pops.paged_attention(*args)
-        want = paged_attention_plain(*args)
-        err, ok = _err(got, want, ATTN_TOL[dt][1])
-        require(ok, f"paged_attention {dt} != plain (max err {err})")
-        rec["paged"].append(dict(dtype=dt, B=8, H=32, Hkv=8, d=128, bs=16,
-                                 N=1024, nb=160, lengths=lengths,
-                                 tol=ATTN_TOL[dt][1], max_abs_err=err))
-    cases = [(S, True, 128) for S in (1, 17, 128, 1000, 2048)]
-    cases += [(S, False, 128) for S in (1, 17, 128, 1000, 2048)]
-    cases += [(1000, True, 80)]
+        for H, Hkv, lens in paged_cases:
+            args = paged_inputs(dev, getattr(torch, dt), lens, rng, H=H,
+                                Hkv=Hkv)
+            got = pops.paged_attention(*args)
+            want = paged_attention_plain(*args)
+            err, ok = _err(got, want, ATTN_TOL[dt][1])
+            require(ok, f"paged_attention {dt} H={H} Hkv={Hkv} lengths "
+                        f"{lens} != plain (max err {err})")
+            rec["paged"].append(dict(dtype=dt, B=8, H=H, Hkv=Hkv, d=128,
+                                     bs=16, N=1024, nb=160, lengths=lens,
+                                     tol=ATTN_TOL[dt][1], max_abs_err=err))
+    cases = [(1, S, 8, True, 128) for S in (1, 17, 128, 1000, 2048)]
+    cases += [(1, S, 8, False, 128) for S in (1, 17, 128, 1000, 2048)]
+    cases += [(1, 1000, 8, True, 80), (4, 1000, 32, True, 64),
+              (4, 1000, 32, True, 80)]
     for dt in ("float32", "bfloat16"):
-        for S, causal, hd in cases:
+        for B, S, Hkv, causal, hd in cases:
             g = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(
                 np.float32)).to(dev, getattr(torch, dt))
-            q, k, v = g(1, S, 32, hd), g(1, S, 8, hd), g(1, S, 8, hd)
+            q, k, v = g(B, S, 32, hd), g(B, S, Hkv, hd), g(B, S, Hkv, hd)
             got = fops.flash_attention(q, k, v, causal=causal)
             want = flash_attention_plain(q, k, v, causal)
             err, ok = _err(got, want, ATTN_TOL[dt][0])
-            require(ok, f"flash_attention {dt} S={S} causal={causal} "
-                        f"hd={hd} != plain (max err {err})")
-            rec["flash"].append(dict(dtype=dt, B=1, S=S, H=32, Hkv=8, hd=hd,
-                                     causal=causal, tol=ATTN_TOL[dt][0],
-                                     max_abs_err=err))
+            require(ok, f"flash_attention {dt} B={B} S={S} Hkv={Hkv} "
+                        f"causal={causal} hd={hd} != plain (max err {err})")
+            rec["flash"].append(dict(dtype=dt, B=B, S=S, H=32, Hkv=Hkv,
+                                     hd=hd, causal=causal,
+                                     route=fops.route(q.dtype),
+                                     tol=ATTN_TOL[dt][0], max_abs_err=err))
     torch.cuda.synchronize()
 
     # the plain versions' times, at the bf16 check shapes, beside the
@@ -223,7 +238,7 @@ def attn_kernels_vs_plain(dev):
     rec["paged_plain_ms"] = statistics.median(warm_ms(
         lambda: paged_attention_plain(*args), flush, 5))
     rec["paged_kernel_ms"] = statistics.median(warm_ms(
-        lambda: pops.paged_attention(*args), flush, 5))
+        lambda: pops.paged_attention(*args, validate=False), flush, 5))
     g = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(
         np.float32)).to(dev, torch.bfloat16)
     q, k, v = g(1, 2048, 32, 128), g(1, 2048, 8, 128), g(1, 2048, 8, 128)
@@ -493,11 +508,34 @@ def serve_consistency(dev):
     return rec
 
 
+# bf16 flash_attention shapes timed: serve_main's prefill at S 2048, and
+# hybrid_main's (zamba2-2.7b's shared block over 4 x 2,048 tokens)
+FLASH_TIMED = {"main": (1, 2048, 32, 8, 128), "hybrid": (4, 2048, 32, 32, 80)}
+# The CUDA-core versions of the two kernels, before their Hopper redesign,
+# as PERF.md's figures of that time give them: reported beside the new
+# times and never compared with them, since they were measured another
+# way.  ``--previous`` times those kernels the way this script times the
+# present ones.
+PREVIOUS_MS = {"flash_main": 2.1745, "flash_hybrid": 5.57, "paged": 0.2488}
+PREVIOUS_ORIGIN = {
+    "flash_main": "PERF.md, before the redesign: CUDA events, L2 emptied "
+                  "by a 1 GiB write",
+    "flash_hybrid": "PERF.md, before the redesign: profiler mean of 9 "
+                    "launches in hybrid_main (50.1 ms / 9), L2 not emptied",
+    "paged": "PERF.md, before the redesign: CUDA events, L2 emptied by a "
+             "1 GiB write, the wrapper's value check (a host read) in the "
+             "timed window"}
+# serve_main's decode-length octiles (its seeded requests reach the same
+# ones every run): the paged kernel's timed rows for ``--previous``
+SERVE_DECODE_LENGTHS = [1196, 1263, 1372, 1487, 1663, 1839, 1910, 1985]
+
+
 def attn_kernel_time(dev, lengths):
-    """CUDA-event medians of each attention kernel at serve_main's
-    shapes (paged: B = 8 rows at the run's decode context lengths), L2 flushed between launches, beside its bound and one
-    ``scaled_dot_product_attention`` call as a yardstick (never called
-    by the port)."""
+    """CUDA-event medians of each attention kernel at its paths' shapes
+    (paged: B = 8 rows at serve_main's decode context lengths; flash:
+    ``FLASH_TIMED``), L2 flushed between launches, beside its bound, its
+    time before the redesign and one ``scaled_dot_product_attention``
+    call as a yardstick (never called by the port)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.paged_attention import ops as pops
@@ -506,17 +544,21 @@ def attn_kernel_time(dev, lengths):
     flush = torch.empty(256 << 20, dtype=torch.float32, device=dev)
     q, kp, vp, bt, lens = paged_inputs(dev, torch.bfloat16, lengths, rng)
     before = pops.launch_count
-    p_runs = warm_ms(lambda: pops.paged_attention(q, kp, vp, bt, lens),
-                          flush)
+    p_runs = warm_ms(lambda: pops.paged_attention(q, kp, vp, bt, lens,
+                                                  validate=False), flush)
     require(pops.launch_count == before + len(p_runs) + 1,
             "timed paged call not one launch each")
+    # the same calls with the wrapper's value check (a host read), as the
+    # model makes one a step and as the times before the redesign had it
+    p_checked = statistics.median(warm_ms(
+        lambda: pops.paged_attention(q, kp, vp, bt, lens), flush))
     p_bound, p_by, p_bytes, p_ops = paged_bound(lengths)
     # the yardstick: K/V gathered to contiguous (B, S, Hkv, d) storage
     # first (not timed), a boolean length mask
-    B, S = len(lengths), max(lengths)
+    B_p, S = len(lengths), max(lengths)
     nbk = -(-S // 16)
-    kc = kp[bt[:, :nbk].long()].reshape(B, -1, 8, 128)[:, :S]
-    vc = vp[bt[:, :nbk].long()].reshape(B, -1, 8, 128)[:, :S]
+    kc = kp[bt[:, :nbk].long()].reshape(B_p, -1, 8, 128)[:, :S]
+    vc = vp[bt[:, :nbk].long()].reshape(B_p, -1, 8, 128)[:, :S]
     kc, vc = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     mask = (torch.arange(S, device=dev)[None] < lens[:, None].long()
             )[:, None, None, :]
@@ -527,42 +569,133 @@ def attn_kernel_time(dev, lengths):
                                          enable_gqa=True)[:, :, 0]
     lib_err = float((ref.float() - pops.paged_attention(
         q, kp, vp, bt, lens).float()).abs().max())
+    del kc, vc, mask, ref
 
     g = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(
         np.float32)).to(dev, torch.bfloat16)
-    S = 2048
-    fq, fk, fv = g(1, S, 32, 128), g(1, S, 8, 128), g(1, S, 8, 128)
-    before = fops.launch_count
-    f_runs = warm_ms(lambda: fops.flash_attention(fq, fk, fv, True),
-                          flush)
-    require(fops.launch_count == before + len(f_runs) + 1,
-            "timed flash call not one launch each")
-    f_bound, f_by, f_bytes, f_ops = flash_bound(1, S, 32, 8, 128, True)
-    tq, tk, tv = (t.transpose(1, 2) for t in (fq, fk, fv))
-    f_lib = warm_ms(lambda: F.scaled_dot_product_attention(
-        tq, tk, tv, is_causal=True, enable_gqa=True), flush)
-    p_ms, f_ms = statistics.median(p_runs), statistics.median(f_runs)
-    f_lib_ms = statistics.median(f_lib)
+    flash = {}
+    for name, (B, S, H, Hkv, hd) in FLASH_TIMED.items():
+        fq, fk, fv = g(B, S, H, hd), g(B, S, Hkv, hd), g(B, S, Hkv, hd)
+        before = fops.launch_count
+        f_runs = warm_ms(lambda: fops.flash_attention(fq, fk, fv, True),
+                         flush)
+        require(fops.launch_count == before + len(f_runs) + 1,
+                "timed flash call not one launch each")
+        f_bound, f_by, f_bytes, f_ops = flash_bound(B, S, H, Hkv, hd, True)
+        tq, tk, tv = (t.transpose(1, 2) for t in (fq, fk, fv))
+        f_lib = statistics.median(warm_ms(
+            lambda: F.scaled_dot_product_attention(
+                tq, tk, tv, is_causal=True, enable_gqa=True), flush))
+        f_ms = statistics.median(f_runs)
+        flash[name] = dict(
+            shape=f"bf16, B={B}, S={S}, H={H}, Hkv={Hkv}, hd={hd}, causal",
+            route=fops.route(fq.dtype), ms_runs=f_runs, ms=f_ms,
+            bytes=f_bytes, ops=f_ops, bound_ms=f_bound, bound_by=f_by,
+            roofline_share=f_bound / f_ms, tflops=f_ops / f_ms / 1e9,
+            previous_ms=PREVIOUS_MS["flash_" + name],
+            previous_ms_origin=PREVIOUS_ORIGIN["flash_" + name],
+            library_ms=f_lib, library_tflops=f_ops / f_lib / 1e9,
+            library_roofline_share=f_bound / f_lib,
+            library="scaled_dot_product_attention, is_causal, enable_gqa")
+        del fq, fk, fv, tq, tk, tv
+    p_ms, p_lib = statistics.median(p_runs), statistics.median(p_lib)
     return dict(
         phase="attn_kernel_time",
-        paged=dict(shape=f"bf16, B={B}, H=32, Hkv=8, d=128, bs=16, "
+        paged=dict(shape=f"bf16, B={B_p}, H=32, Hkv=8, d=128, bs=16, "
                          f"lengths {lengths}", ms_runs=p_runs, ms=p_ms,
+                   n_splits=pops.plan_splits(B_p, 8, 160 * 16),
                    bytes=p_bytes, ops=p_ops, bound_ms=p_bound, bound_by=p_by,
                    roofline_share=p_bound / p_ms,
-                   library_ms=statistics.median(p_lib),
+                   gbytes_per_s=p_bytes / p_ms / 1e6,
+                   ms_with_value_check=p_checked,
+                   previous_ms=PREVIOUS_MS["paged"],
+                   previous_ms_origin=PREVIOUS_ORIGIN["paged"],
+                   library_ms=p_lib,
+                   library_roofline_share=p_bound / p_lib,
                    library="scaled_dot_product_attention over K/V gathered "
                            "to contiguous storage (gather not timed), "
                            "boolean length mask, enable_gqa",
                    library_max_abs_err=lib_err),
-        flash=dict(shape="bf16, B=1, S=2048, H=32, Hkv=8, hd=128, causal",
-                   ms_runs=f_runs, ms=f_ms, bytes=f_bytes, ops=f_ops,
-                   bound_ms=f_bound, bound_by=f_by,
-                   roofline_share=f_bound / f_ms,
-                   tflops=f_ops / f_ms / 1e9,
-                   library_ms=f_lib_ms,
-                   library="scaled_dot_product_attention, is_causal, "
-                           "enable_gqa"),
+        flash=flash["main"], flash_hybrid=flash["hybrid"],
         l2_flush_bytes=flush.numel() * 4)
+
+
+def _load_module(path: str, name: str):
+    """The module of file ``path``, imported under ``name``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def attn_previous(dev, tree: str):
+    """The two attention kernels of another checkout ``tree`` (an earlier
+    commit) timed beside the present ones in the same way as
+    ``attn_kernel_time`` (CUDA events, L2 emptied by a 1 GiB read, medians
+    of 20; paged without the value check), in the order earlier, present,
+    present, earlier; and each kernel's max and mean |err| against its
+    plain version on fp32 copies of the same inputs (no bf16 rounding of
+    the reference's output).  Only ``tree``'s wrappers and CUDA sources are
+    used; they build and load through this checkout's ``kernels/build``."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+
+    kdir = os.path.join(os.path.abspath(tree), "src", "repro_torch",
+                        "kernels")
+    old_f = _load_module(os.path.join(kdir, "flash_attention", "ops.py"),
+                         "previous_flash_ops")
+    old_p = _load_module(os.path.join(kdir, "paged_attention", "ops.py"),
+                         "previous_paged_ops")
+    t0 = time.perf_counter()
+    kbuild.build_many([("flash_attention", fops.SOURCE),
+                       ("paged_attention", pops.SOURCE),
+                       ("flash_attention", old_f.SOURCE),
+                       ("paged_attention", old_p.SOURCE)])
+    rec = dict(phase="attn_previous", tree=tree,
+               build_s=time.perf_counter() - t0)
+    rng = np.random.default_rng(2)
+    flush = torch.empty(256 << 20, dtype=torch.float32, device=dev)
+
+    def both(old, new, want):
+        """[earlier, present, present, earlier] medians and the max and
+        mean errors of ``old()`` and ``new()`` against ``want``."""
+        ms = [statistics.median(warm_ms(f, flush))
+              for f in (old, new, new, old)]
+        err = [(f().float() - want).abs() for f in (old, new)]
+        return dict(previous_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+                    previous_max_abs_err=float(err[0].max()),
+                    max_abs_err=float(err[1].max()),
+                    previous_mean_abs_err=float(err[0].mean()),
+                    mean_abs_err=float(err[1].mean()))
+
+    q, kp, vp, bt, lens = paged_inputs(dev, torch.bfloat16,
+                                       SERVE_DECODE_LENGTHS, rng)
+    want = paged_attention_plain(q.float(), kp.float(), vp.float(), bt, lens)
+    rec["paged"] = dict(
+        shape=f"bf16, B=8, H=32, Hkv=8, d=128, bs=16, lengths "
+              f"{SERVE_DECODE_LENGTHS}",
+        **both(lambda: old_p.paged_attention(q, kp, vp, bt, lens,
+                                             validate=False),
+               lambda: pops.paged_attention(q, kp, vp, bt, lens,
+                                            validate=False), want))
+    del q, kp, vp, bt, lens, want
+    g = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    for name, (B, S, H, Hkv, hd) in FLASH_TIMED.items():
+        q, k, v = g(B, S, H, hd), g(B, S, Hkv, hd), g(B, S, Hkv, hd)
+        want = flash_attention_plain(q.float(), k.float(), v.float(), True)
+        rec["flash_" + name] = dict(
+            shape=f"bf16, B={B}, S={S}, H={H}, Hkv={Hkv}, hd={hd}, causal",
+            **both(lambda: old_f.flash_attention(q, k, v, True),
+                   lambda: fops.flash_attention(q, k, v, True), want))
+        del q, k, v, want
+    rec["l2_flush_bytes"] = flush.numel() * 4
+    return rec
 
 
 # -- the SSM and hybrid paths ------------------------------------------------------
@@ -924,7 +1057,13 @@ def mamba_scan_time(dev):
 
 
 def main() -> int:
-    """Run every phase; returns the exit code."""
+    """Run every phase (or, with ``--previous``, only ``attn_previous``);
+    returns the exit code."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--previous", metavar="DIR",
+                    help="only time the attention kernels of the checkout "
+                         "DIR (an earlier commit) beside the present ones")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -951,6 +1090,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.previous:
+        emit(attn_previous(dev, args.previous))
+        print(smi, flush=True)
+        return 0
 
     # -- device: the card, the toolchain, the kernel builds --------------------
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
@@ -1197,7 +1340,7 @@ def main() -> int:
     emit(serve_consistency(dev))
     timing = attn_kernel_time(dev, med_lengths)
     emit(timing)
-    pt, ft = timing["paged"], timing["flash"]
+    pt, ft, fh = timing["paged"], timing["flash"], timing["flash_hybrid"]
 
     # -- the SSM and hybrid paths: scan kernel, both models, consistency -------
     scan_check = mamba_scan_vs_plain(dev)
@@ -1261,6 +1404,8 @@ def main() -> int:
              plain_ms=check["flash_plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"],
              ms_shape=ft["shape"],
+             at_hybrid_shape={k: fh[k] for k in (
+                 "shape", "ms", "bound_ms", "bound_by", "library_ms")},
              plain_shape=check["plain_shapes"]["flash"],
              kernel_ms_at_plain_shape=check["flash_kernel_ms"]),
         dict(name="mamba_scan", route="cuda",

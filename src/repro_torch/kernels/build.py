@@ -26,10 +26,13 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_libs: Dict[str, ctypes.CDLL] = {}
+# Loaded libraries by (name, source): two sources of one kernel, such as
+# an earlier version timed beside the present one, load side by side.
+_libs: Dict[Tuple[str, pathlib.Path], ctypes.CDLL] = {}
 # Per kernel, what the build that produced its library reported: seconds
 # (wall time of the parallel build it was part of), whether it was built
-# now or found, the library's name, and ptxas' register / spill lines.
+# now or found, the library's name, and ptxas' lines naming each kernel
+# and its registers, spills and warnings.
 _info: Dict[str, Dict[str, object]] = {}
 
 
@@ -84,7 +87,8 @@ def build_many(kernels: Sequence[Tuple[str, pathlib.Path]]) -> None:
             seconds=time.perf_counter() - t0, built_now=True,
             library=target.name,
             ptxas=[ln.strip() for ln in out.splitlines()
-                   if "registers" in ln or "spill" in ln])
+                   if any(w in ln for w in ("entry function", "registers",
+                                            "spill", "warning"))])
     if failed:
         raise RuntimeError("\n".join(failed))
 
@@ -95,7 +99,7 @@ def load(name: str, source: pathlib.Path,
     first use; ``symbols`` maps each C entry point to its ``argtypes``
     (each returns a ``cudaError_t`` as an int).  Raises if ``nvcc``
     fails; there is no fallback."""
-    lib = _libs.get(name)
+    lib = _libs.get((name, source))
     if lib is not None:
         return lib
     build_many([(name, source)])
@@ -104,5 +108,5 @@ def load(name: str, source: pathlib.Path,
         fn = getattr(lib, sym)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    _libs[name] = lib
+    _libs[name, source] = lib
     return lib

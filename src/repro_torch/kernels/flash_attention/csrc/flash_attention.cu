@@ -7,32 +7,54 @@
 // k/v (B, Skv, Hkv, hd), any strides with the last dimension contiguous,
 // and does grouped-query attention by head index (query head h reads KV
 // head h / (H / Hkv)); the K/V heads are never repeated in memory, and
-// head_dim is not padded (any multiple of 8 up to 128).  Causal masking is
-// top-left aligned (kpos <= qpos), as the reference has it.
-//
-// Design: one block of 256 threads per (64 query rows, head, batch).  The
-// block keeps its Q tile (pre-scaled, fp32) in shared memory and walks
-// the KV tiles of 64 rows; under the causal mask it stops at the tile
-// that holds its last row's diagonal, so fully masked tiles are never
-// loaded (the TPU kernel's skip test never fires, see ROADMAP.md).  Each
-// thread owns 4 query rows x 4 score columns of a tile (S = Q K^T in fp32
-// on the CUDA cores) and the same 4 rows x up to 8 output columns of the
-// accumulator, in registers.  Row max and row sum reduce over the 16
-// lanes that share a row with shuffles; masked scores are -1e30 (the
-// reference's constant); the output is acc / max(l, 1e-30) stored in the
-// input type.  Shared memory: Q^T [hd][64], K^T [hd][65] (padded so the
-// transposing store is free of bank conflicts), V [64][hd] and P [64][65],
-// 115 KB at hd = 128, set with cudaFuncSetAttribute.
+// head_dim is any multiple of 8 up to 128.  Causal masking is top-left
+// aligned (kpos <= qpos) with masked scores at -1e30, as the reference has
+// it; the softmax is fp32 and the output acc / max(l, 1e-30) in the input
+// type.
 //
 // What bounds it on this card: operations.  Prefill at S = 2048 does
 // 4 * H * hd * S^2 / 2 flops per sequence and layer on 2 * S * (H + 2 Hkv)
 // * hd inputs, far above the 295 flop/byte ridge of the bf16 tensor cores.
-// This first version computes on the fp32 CUDA cores (67 TFLOP/s peak),
-// so it can reach at most 1/15 of the bf16 tensor-core bound; wgmma
-// tiles fed by TMA, with warp specialisation, are the next step.
+//
+// Two kernels, chosen by the input type (ops.py states the rule):
+//
+// * bf16: flash_attention_kernel_sm90, on the tensor cores.  One block of
+//   three warpgroups per (128 query rows, head, batch): two consumer
+//   warpgroups of 64 rows each and one producer warpgroup, of which one
+//   thread issues TMA copies (cp.async.bulk.tensor) and the rest only give
+//   their registers to the consumers (setmaxnreg 24 / 240; ptxas fits the
+//   consumer path in the 168 registers a thread has at launch, so this is
+//   headroom).  The producer loads the Q tile once and streams K and V
+//   tiles of 128 rows through a ring of two stages in shared memory, each
+//   signalled by an mbarrier with the transaction's bytes; the consumers
+//   release a stage through a second mbarrier.  Every tile is a box of 64 columns (128 bytes, the span of the
+//   128-byte swizzle) by 128 rows; head_dim is covered by one or two boxes,
+//   and the columns past head_dim (hd 80: 80..127; hd 32: 32..63) are filled
+//   with zeros by TMA, as are rows past Sq or Skv.  S = Q K^T is
+//   wgmma.mma_async m64n128k16 with both operands in shared memory (K is
+//   K-major as stored), bf16 in and fp32 accumulate, one k-step per 16
+//   columns of head_dim actually present; the online softmax runs on the
+//   accumulator registers (a row's 128 scores are spread over the 4 lanes
+//   of a quad, so a row reduction is two shuffles); P, rounded to bf16,
+//   goes straight from those registers into the A operand of P V (the
+//   accumulator and A-fragment layouts coincide), and V is read from shared
+//   memory as an MN-major operand through the descriptor's transpose bit,
+//   as wide as head_dim needs (m64n64k16, m64n80k16 at hd 80, m64n128k16).
+//   Under the causal mask a block stops at the tile holding its last row's
+//   diagonal and masks only the tiles that cross the diagonal or the end of
+//   K/V.  Blocks of the heaviest query tiles are scheduled first.  Shared
+//   memory: Q 32 KB + 2 x (K + V) 64 KB at head_dim 128 (half at <= 64).
+// * fp32: flash_attention_kernel, on the fp32 CUDA cores (67 TFLOP/s
+//   peak): one block of 256 threads per (64 query rows, head, batch), Q
+//   (pre-scaled) and each K/V tile of 64 rows staged in shared memory, 4
+//   rows x 4 score columns and 4 rows x up to 8 output columns a thread in
+//   registers.  It is what the fp32 checks (2e-5) hold the model to; TF32
+//   tensor cores would not meet them.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -46,16 +68,9 @@ constexpr int kOut = kMaxHd / 16;     // output columns per thread
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
 }
 
 struct Strides {  // element strides of (batch, sequence, head); dim is 1
@@ -218,23 +233,544 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+namespace sm90 {
+
+constexpr int kBM = 128;              // query rows per block
+constexpr int kBN = 128;              // KV rows per tile
+constexpr int kStages = 2;            // K/V ring depth
+constexpr int kConsumers = 2;         // warpgroups of 64 query rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kSpan = 64;             // bf16 columns: one 128-byte swizzle span
+constexpr float kNegInf = -1e30f;
+
+// Shared memory of one block, in bytes from a 1024-aligned base: Q, the K
+// ring, the V ring (each tile one span of kSpan columns after another,
+// rows of 128 bytes, swizzled), then the mbarriers.
+template <int HDP>
+struct Layout {
+  static constexpr uint32_t kSpans = HDP / kSpan;
+  static constexpr uint32_t kQSpan = kBM * 128;
+  static constexpr uint32_t kKVSpan = kBN * 128;
+  static constexpr uint32_t kQBytes = kSpans * kQSpan;
+  static constexpr uint32_t kKVBytes = kSpans * kKVSpan;
+  static constexpr uint32_t kK = kQBytes;
+  static constexpr uint32_t kV = kK + kStages * kKVBytes;
+  static constexpr uint32_t kBar = kV + kStages * kKVBytes;
+  // barriers: Q full, K full[kStages], V full[kStages], empty[kStages]
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive on `bar` and add `bytes` to the transaction count its phase waits
+// for (the TMA copies that signal it bring them).
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with parity `parity` has completed.  A
+// wait that never ends (a fault in the pipeline) traps after about 2^26
+// tries, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (tries == (1u << 26)) asm volatile("trap;");
+  }
+}
+
+// One TMA box of a 4-d tensor map (coordinates innermost first) into
+// shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (all >> 4), layout type 1.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Tell the compiler every register of `d` may have changed here, so that
+// no read of an accumulator moves above the wgmma wait before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for A fragments read from registers: they stay live, so their
+// registers are not reused, until the wgmma that reads them has completed.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (m64n128, fp32) (+)= A (64x16 bf16, shared, K-major) B (16x128 bf16,
+// shared, K-major); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (m64n128, fp32) (+)= A (64x16 bf16, registers) B (16x128 bf16, shared,
+// MN-major: the transpose bit is set); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (m64n64, fp32) (+)= A (64x16 bf16, registers) B (16x64 bf16, shared,
+// MN-major: the transpose bit is set); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (m64n80, fp32) (+)= A (64x16 bf16, registers) B (16x80 bf16, shared,
+// MN-major: the transpose bit is set); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_rs_m64n80(float (&d)[40],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 128) {
+    wgmma_rs_m64n128(acc, a, db, 1);
+  } else if constexpr (N == 80) {
+    wgmma_rs_m64n80(acc, a, db, 1);
+  } else {
+    wgmma_rs_m64n64(acc, a, db, 1);
+  }
+}
+
+// HDP: head_dim padded to whole spans (64 or 128); KS: k-steps of 16
+// columns in S = Q K^T and NO: output columns of P V (ceil(hd / 16) and
+// hd rounded up to a supported count; past hd, TMA's zeros).
+template <int HDP, int KS, int NO>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_sm90(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+    long long so_b, long long so_s, long long so_h, int Sq, int Skv, int H,
+    int Hkv, int hd, float scale_log2, int causal) {
+  using Lay = Layout<HDP>;
+  static_assert(KS * 16 <= HDP && NO <= HDP, "past the padded head_dim");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + Lay::kK, sV = base + Lay::kV;
+  const uint32_t bar_q = base + Lay::kBar;
+  const uint32_t bar_k = bar_q + 8;                 // [kStages]
+  const uint32_t bar_v = bar_k + 8 * kStages;       // [kStages]
+  const uint32_t bar_e = bar_v + 8 * kStages;       // [kStages]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;  // heaviest tiles first
+  const int kh = h / (H / Hkv);
+  int n_tiles = (Skv + kBN - 1) / kBN;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + kBM, Sq) - 1) / kBN + 1);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, kConsumers * 4);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == kConsumers) {
+    // -- producer warpgroup: one thread issues every copy ------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (tid == kConsumers * 128) {
+      mbar_expect_tx(bar_q, Lay::kQBytes);
+#pragma unroll
+      for (int c = 0; c < (int)Lay::kSpans; ++c)
+        tma_load_4d(sQ + c * Lay::kQSpan, &tq, bar_q, c * kSpan, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(bar_e + 8 * s, ((t / kStages) - 1) & 1);
+        const uint32_t kd = sK + s * Lay::kKVBytes, vd = sV + s * Lay::kKVBytes;
+        mbar_expect_tx(bar_k + 8 * s, Lay::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < (int)Lay::kSpans; ++c)
+          tma_load_4d(kd + c * Lay::kKVSpan, &tk, bar_k + 8 * s, c * kSpan, kh,
+                      t * kBN, b);
+        mbar_expect_tx(bar_v + 8 * s, Lay::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < (int)Lay::kSpans; ++c)
+          tma_load_4d(vd + c * Lay::kKVSpan, &tv, bar_v + 8 * s, c * kSpan, kh,
+                      t * kBN, b);
+      }
+    }
+  } else {
+    // -- consumer warpgroups: 64 query rows each ---------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+    const int qw0 = q0 + wg * 64;                  // this warpgroup's first row
+    const int row0 = qw0 + warp * 16 + lane / 4;   // this thread's rows: row0
+    const int row1 = row0 + 8;                     // and row0 + 8
+    const int cq = 2 * (lane % 4);                 // column pair in 8 columns
+    float acc[NO / 2];
+#pragma unroll
+    for (int i = 0; i < NO / 2; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const uint32_t ph = (t / kStages) & 1;
+      const int k0 = t * kBN;
+
+      // S = Q K^T over the k-steps of head_dim
+      float S[kBN / 2];
+      mbar_wait(bar_k + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t a = sQ + (ks / 4) * Lay::kQSpan + wg * 64 * 128 +
+                           (ks % 4) * 32;
+        const uint32_t bk = sK + s * Lay::kKVBytes + (ks / 4) * Lay::kKVSpan +
+                            (ks % 4) * 32;
+        wgmma_ss_m64n128(S, desc_sw128(a, 16, 1024), desc_sw128(bk, 16, 1024),
+                         ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(S);
+
+      // mask the tiles that cross the diagonal or the end of K/V
+      if (k0 + kBN > Skv || (causal && k0 + kBN - 1 > qw0)) {
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + cq + (e & 1);
+            const int qpos = e < 2 ? row0 : row1;
+            if (kpos >= Skv || (causal && kpos > qpos)) S[4 * j + e] = kNegInf;
+          }
+      }
+
+      // online softmax on the accumulator registers (a row: one quad)
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(S[4 * j], S[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(S[4 * j + 2], S[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = exp2f((m0 - mn0) * scale_log2);
+      const float alpha1 = exp2f((m1 - mn1) * scale_log2);
+      m0 = mn0;
+      m1 = mn1;
+      const float c0 = mn0 * scale_log2, c1 = mn1 * scale_log2;
+      uint32_t P[kBN / 4];
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        float p[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          p[e] = exp2f(fmaf(S[8 * kk + e], scale_log2, (e & 2) ? -c1 : -c0));
+        ps0 += (p[0] + p[1]) + (p[4] + p[5]);
+        ps1 += (p[2] + p[3]) + (p[6] + p[7]);
+        // A fragment of k-step kk: rows (row0, row1) x columns
+        // (16 kk + cq, 16 kk + 8 + cq), two values each
+        P[4 * kk + 0] = pack_bf16(p[0], p[1]);
+        P[4 * kk + 1] = pack_bf16(p[2], p[3]);
+        P[4 * kk + 2] = pack_bf16(p[4], p[5]);
+        P[4 * kk + 3] = pack_bf16(p[6], p[7]);
+      }
+      l0 = l0 * alpha0 + ps0;
+      l1 = l1 * alpha1 + ps1;
+#pragma unroll
+      for (int j = 0; j < NO / 8; ++j) {
+        acc[4 * j] *= alpha0;
+        acc[4 * j + 1] *= alpha0;
+        acc[4 * j + 2] *= alpha1;
+        acc[4 * j + 3] *= alpha1;
+      }
+
+      // acc += P V, V MN-major: spans of 64 columns kKVSpan bytes apart
+      // (leading offset), groups of 8 rows 1024 bytes apart (stride offset)
+      mbar_wait(bar_v + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint32_t a[4] = {P[4 * kk], P[4 * kk + 1], P[4 * kk + 2],
+                               P[4 * kk + 3]};
+        const uint32_t bv = sV + s * Lay::kKVBytes + kk * 16 * 128;
+        wgmma_pv<NO>(acc, a, desc_sw128(bv, Lay::kKVSpan, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(P);
+      if (lane == 0) mbar_arrive(bar_e + 8 * s);   // this warp is done with s
+    }
+
+    // epilogue: the quad's partial row sums, acc / max(l, 1e-30)
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    __nv_bfloat16* o0 = o + b * so_b + (long long)row0 * so_s + h * so_h;
+    __nv_bfloat16* o1 = o0 + 8 * so_s;
+#pragma unroll
+    for (int j = 0; j < NO / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col >= hd) break;
+      if (row0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
+            __floats2bfloat162_rn(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+      if (row1 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: reach it
+// through the runtime's entry-point query, so nothing links libcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a bf16 (B, S, heads, hd) tensor with element strides
+// st = (batch, sequence, head), head_dim contiguous: boxes of kSpan columns
+// x `rows` rows of one head, 128-byte swizzle, zeros past every edge.
+bool encode(CUtensorMap* map, const void* ptr, const long long* st, int B,
+            int S, int heads, int hd, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kSpan, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HDP, int KS, int NO>
+int launch_hd(const CUtensorMap& tq, const CUtensorMap& tk,
+              const CUtensorMap& tv, void* o, const long long* so, int B,
+              int Sq, int Skv, int H, int Hkv, int hd, int causal,
+              cudaStream_t stream) {
+  const auto kernel = flash_attention_kernel_sm90<HDP, KS, NO>;
+  const int smem = (int)Layout<HDP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so[0], so[1], so[2], Sq,
+      Skv, H, Hkv, hd, 1.4426950408889634f / sqrtf((float)hd), causal);
+  return (int)cudaGetLastError();
+}
+
+int launch(const void* q, const void* k, const void* v, void* o,
+           const long long* st, int B, int Sq, int Skv, int H, int Hkv,
+           int hd, int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, st, B, Sq, H, hd, kBM) ||
+      !encode(&tk, k, st + 3, B, Skv, Hkv, hd, kBN) ||
+      !encode(&tv, v, st + 6, B, Skv, Hkv, hd, kBN))
+    return (int)cudaErrorInvalidValue;
+  auto* run = hd <= 64   ? launch_hd<64, 4, 64>
+              : hd <= 80 ? launch_hd<128, 5, 80>
+                         : launch_hd<128, 8, 128>;
+  return run(tq, tk, tv, o, st + 9, B, Sq, Skv, H, Hkv, hd, causal, stream);
+}
+
+}  // namespace sm90
+
 // Plain C entry point (bound with ctypes).  `strides` holds 12 element
-// strides: (batch, sequence, head) of q, k, v and o in that order.  dtype
-// is 0 for float32 and 1 for bfloat16.  Launches on `stream`, does not
-// synchronise, and returns the launch's cudaError_t (0 = cudaSuccess).
+// strides: (batch, sequence, head) of q, k, v and o in that order.
+// `kernel` is ops.route's choice: 0 launches the CUDA-core kernel on
+// float32 inputs, 1 the tensor-core kernel on bfloat16 inputs (which also
+// needs 16-byte aligned bases and strides that are multiples of 8
+// elements; ops.py checks them).  Launches on
+// `stream`, does not synchronise, and returns the launch's cudaError_t
+// (0 = cudaSuccess).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     const long long* strides, int B, int Sq, int Skv, int H, int Hkv, int hd,
-    int causal, int dtype, void* stream) {
+    int causal, int kernel, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return (int)cudaSuccess;
   if (hd <= 0 || hd > kMaxHd || hd % 8 != 0 || Skv <= 0 || Hkv <= 0 ||
       H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, o, strides, B, Sq, Skv, H, Hkv, hd, causal, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, strides, B, Sq, Skv, H, Hkv, hd,
-                                 causal, s);
+  if (kernel == 0)
+    return launch<float>(q, k, v, o, strides, B, Sq, Skv, H, Hkv, hd, causal,
+                         s);
+  if (kernel == 1)
+    return sm90::launch(q, k, v, o, strides, B, Sq, Skv, H, Hkv, hd, causal,
+                        s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,9 +2,21 @@
 
 ``flash_attention(q, k, v, causal)`` takes q (B, Sq, H, hd) and k/v
 (B, Skv, Hkv, hd), the public layout of the reference wrapper, and
-returns (B, Sq, H, hd).  On CUDA tensors it launches the Hopper kernel
-(``csrc/flash_attention.cu``) on the current stream or raises; on CPU
+returns (B, Sq, H, hd).  On CUDA tensors it launches a Hopper kernel of
+``csrc/flash_attention.cu`` on the current stream or raises; on CPU
 tensors, and only there, it runs the plain version (``ref.py``).
+
+Which kernel runs is fixed by the input type, not by whether a launch
+succeeds.  ``route`` is the one place that choice is made; its result
+is what the C entry point is told to launch:
+
+* bfloat16 -> ``"wgmma"``: the tensor-core kernel, its tiles loaded by
+  TMA.  TMA needs each of q, k, v (and so their views) to start on a
+  16-byte boundary with batch, sequence and head strides that are
+  multiples of 16 bytes (``tma_compatible``); a bf16 call whose inputs
+  fail that raises, it does not fall back.
+* float32 -> ``"cuda_cores"``: the fp32 kernel on the CUDA cores, which
+  holds the fp32 checks' 2e-5 (TF32 tensor cores would not).
 
 ``launch_count`` counts kernel launches (a plain integer; reset it by
 assigning 0), so a run can show that its path went through the kernel.
@@ -22,8 +34,10 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _p, _i32 = ctypes.c_void_p, ctypes.c_int
 SYMBOLS = {"flash_attention_launch": [_p] * 5 + [_i32] * 8 + [_p]}
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma"}
+KERNELS = {"cuda_cores": 0, "wgmma": 1}   # csrc: the entry's `kernel`
 MAX_HEAD_DIM = 128
+TMA_ALIGN = 16    # bytes: TMA's base-address and stride granule
 
 # Number of kernel launches in this process.
 launch_count = 0
@@ -41,9 +55,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"{H} query heads are not a multiple of {Hkv} "
                          f"KV heads")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v are {q.dtype}/{k.dtype}/{v.dtype}; the "
-                        f"kernel takes one of {list(DTYPES)}")
+                        f"kernel takes one of {list(ROUTES)}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v are on different devices")
     if hd > MAX_HEAD_DIM or hd % 8:
@@ -52,6 +66,44 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head_dim axis is not contiguous")
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA call with inputs of ``dtype`` launches."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash_attention takes one of {list(ROUTES)}, not "
+                        f"{dtype}")
+    return ROUTES[dtype]
+
+
+def kernel_strides(t: torch.Tensor) -> tuple:
+    """Element strides of (batch, sequence, head) of a (B, S, heads, hd)
+    tensor as the kernel gets them: an axis of size 1 is never stepped
+    along, so it takes the stride a contiguous tensor would have."""
+    B, S, heads, hd = t.shape
+    dense = (S * heads * hd, heads * hd, hd)
+    return tuple(t.stride(i) if t.shape[i] > 1 else dense[i]
+                 for i in range(3))
+
+
+def tma_compatible(t: torch.Tensor) -> bool:
+    """Whether TMA can load (B, S, heads, hd) tensor ``t``: head_dim
+    contiguous, a 16-byte aligned start and (batch, sequence, head)
+    strides that are whole multiples of 16 bytes."""
+    es = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % TMA_ALIGN == 0 and
+            all(s * es % TMA_ALIGN == 0 for s in kernel_strides(t)))
+
+
+def check_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless TMA can load each of q, k and v (``tma_compatible``);
+    a caller whose views fail makes them contiguous first."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not tma_compatible(t):
+            raise ValueError(
+                f"{name} (strides {t.stride()}) is not TMA-loadable: bf16 "
+                f"attention needs a {TMA_ALIGN}-byte aligned start and "
+                f"strides that are multiples of {TMA_ALIGN} bytes")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,18 +119,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}")
     from repro_torch.kernels import build
 
+    kernel = route(q.dtype)
+    if kernel == "wgmma":
+        check_tma(q, k, v)
     lib = build.load("flash_attention", SOURCE, SYMBOLS)
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+        *(s for t in (q, k, v, out) for s in kernel_strides(t)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), B, Sq, Skv, H, Hkv, hd,
-            int(bool(causal)), DTYPES[q.dtype], stream)
+            int(bool(causal)), KERNELS[kernel], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launch_count += 1

@@ -8,16 +8,35 @@ On CUDA tensors it launches the Hopper kernel (``csrc/paged_attention.cu``)
 on the current stream or raises; on CPU tensors, and only there, it runs
 the plain version (``ref.py``).
 
-``launch_count`` counts the calls that launch the kernel (its split-KV
-pass and, where a sequence spans more than one split, the merge); a
-plain integer, reset by assigning 0, so a run can show that its path
-went through the kernel.
+The arithmetic follows the input type, by rule and not by whether a
+launch succeeds: bfloat16 computes on the tensor cores (``mma.sync``;
+the softmax weights enter P V as two bf16 parts, so they keep about
+fp32's precision), float32 on the CUDA cores (its fp32 products hold
+the 2e-5 checks).  Both load K/V with 16-byte ``cp.async`` copies, so
+the pools must start on 16-byte boundaries, and head_dim must be a
+multiple of 8.
+
+The kernel splits each sequence's positions over ``n_splits`` blocks
+per KV head and merges the splits in the same launch.  ``plan_splits``
+chooses ``n_splits`` from the batch, the KV heads and the table's
+capacity (nothing here reads the device's lengths), and
+``split_range`` is the cut the kernel makes of one sequence; both are
+plain functions, so the CPU tests reach them.  The partials' scratch
+and the merge's arrival counters are allocated once per shape, device
+and stream and reused by every call of that stream (the counters are
+left zero by each launch); calls on two streams never share them.
+
+``launch_count`` counts kernel launches (one a call); a plain integer,
+reset by assigning 0, so a run can show that its path went through the
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,10 +44,16 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_plain
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 _p, _i32 = ctypes.c_void_p, ctypes.c_int
-SYMBOLS = {"paged_attention_launch": [_p] * 10 + [_i32] * 7 + [_p],
-           "paged_attention_splits": [_i32, _i32]}
+SYMBOLS = {"paged_attention_launch": [_p] * 9 + [_i32] * 7 + [_p]}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM, MAX_GROUP = 128, 16
+CHUNK = 16        # positions a ring stage holds (csrc: kChunk)
+SMS = 132         # H100 SXM streaming multiprocessors
+WAVES = 2         # blocks an SM holds at once (bf16: 102 KB of rings each)
+ALIGN = 16        # bytes: cp.async's granule; pool rows start on it
+
+# (device, stream, B, Hkv, n_splits, G, d) -> (fp32 partials, int32 counters)
+_scratch: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 # Number of kernel launches in this process.
 launch_count = 0
@@ -48,9 +73,10 @@ def _check(q, kpool, vpool, block_tables, lengths) -> None:
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"{H} query heads are not a multiple of {Hkv} "
                          f"KV heads")
-    if d > MAX_HEAD_DIM or H // Hkv > MAX_GROUP:
-        raise ValueError(f"head_dim {d} (at most {MAX_HEAD_DIM}) or group "
-                         f"{H // Hkv} (at most {MAX_GROUP}) out of range")
+    if d > MAX_HEAD_DIM or d % 8 or H // Hkv > MAX_GROUP:
+        raise ValueError(f"head_dim {d} (a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}) or group {H // Hkv} (at most "
+                         f"{MAX_GROUP}) out of range")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or block_tables.shape[1] < 1 or lengths.shape != (B,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} and "
@@ -76,6 +102,12 @@ def _check(q, kpool, vpool, block_tables, lengths) -> None:
                          "must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check_values(block_tables: torch.Tensor, lengths: torch.Tensor,
                  n_slots: int, block_size: int) -> None:
     """Hold the indices the kernel follows to the pool: every length in
@@ -87,6 +119,40 @@ def check_values(block_tables: torch.Tensor, lengths: torch.Tensor,
     if bool(bad):
         raise ValueError(f"lengths outside [1, {nb * block_size}] or block "
                          f"table entries outside [0, {n_slots})")
+
+
+def plan_splits(B: int, Hkv: int, max_len: int, sms: int = SMS) -> int:
+    """Splits per (sequence, KV head): as many as keep the grid of
+    ``n_splits x Hkv x B`` blocks within ``WAVES`` blocks on each of
+    ``sms`` SMs (the blocks the bf16 kernel's shared memory lets an SM
+    hold at once, so the grid runs as one wave), at least one, and no
+    more than a ``max_len``-position sequence has chunks (so a sequence
+    of that length leaves no split empty)."""
+    want = WAVES * sms // (B * Hkv)
+    return max(1, min(want, -(-max_len // CHUNK)))
+
+
+def split_range(split: int, length: int, n_splits: int) -> Tuple[int, int]:
+    """Positions [lo, hi) of ``split`` when a sequence of ``length``
+    positions is cut into chunks of ``CHUNK`` and its chunks are dealt
+    out evenly over ``n_splits`` splits: the kernel's cut."""
+    n_chunks = -(-length // CHUNK)
+    lo = split * n_chunks // n_splits
+    hi = (split + 1) * n_chunks // n_splits
+    return lo * CHUNK, min(hi * CHUNK, length)
+
+
+def _scratch_for(device, stream: int, B: int, Hkv: int, n_splits: int,
+                 G: int, d: int):
+    """The partials and counters of calls of this shape on ``stream`` (a
+    ``cudaStream_t`` handle): made at the first such call, then reused."""
+    key = (device, stream, B, Hkv, n_splits, G, d)
+    if key not in _scratch:
+        _scratch[key] = (
+            torch.empty(B * Hkv * n_splits * G * (d + 2), dtype=torch.float32,
+                        device=device),
+            torch.zeros(B * Hkv, dtype=torch.int32, device=device))
+    return _scratch[key]
 
 
 def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
@@ -107,28 +173,28 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
                          f"{q.device}")
     from repro_torch.kernels import build
 
+    if kpool.data_ptr() % ALIGN or vpool.data_ptr() % ALIGN:
+        raise ValueError(f"kpool and vpool must start on {ALIGN}-byte "
+                         f"boundaries (16-byte cp.async copies)")
     lib = build.load("paged_attention", SOURCE, SYMBOLS)
     B, H, d = q.shape
     _, bs, Hkv, _ = kpool.shape
-    nb = block_tables.shape[1]
+    n_splits = plan_splits(B, Hkv, block_tables.shape[1] * bs,
+                           sms=_sm_count(q.device))
     out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
-    # fp32 partials of the split-KV pass: (B, Hkv, splits, G, d) and two
-    # (B, Hkv, splits, G); one split needs none
-    splits = lib.paged_attention_splits(nb, bs)
-    n_part = B * H * splits if splits > 1 else 0
-    part = torch.empty(n_part * (d + 2), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 11)(
         q.stride(0), q.stride(1), *kpool.stride()[:3], *vpool.stride()[:3],
         block_tables.stride(0), out.stride(0), out.stride(1))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part, counters = _scratch_for(q.device, stream, B, Hkv, n_splits,
+                                      H // Hkv, d)
         err = lib.paged_attention_launch(
             q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part.data_ptr(), part.data_ptr() + 4 * n_part * d,
-            part.data_ptr() + 4 * n_part * (d + 1),
-            ctypes.cast(strides, ctypes.c_void_p), B, H, Hkv, d, bs, nb,
-            DTYPES[q.dtype], stream)
+            part.data_ptr(), counters.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p), B, H, Hkv, d, bs,
+            n_splits, DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")
     launch_count += 1

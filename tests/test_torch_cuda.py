@@ -70,18 +70,32 @@ def test_sweep_through_the_kernel_equals_the_cpu_path(cuda_device):
 
 # -- attention kernels -------------------------------------------------------
 
-FLASH_SHAPES = [  # B, S, H, Hkv, hd, causal: tests/test_kernels.py, granite
+FLASH_SHAPES = [  # B, S, H, Hkv, hd, causal: tests/test_kernels.py, granite,
+    # one row, rows off the 128-row tile, every head_dim of the bf16 kernel
     (2, 128, 4, 2, 64, True),
     (1, 256, 2, 2, 128, False),
     (2, 96, 4, 1, 80, True),
     (1, 64, 2, 2, 32, True),
     (1, 1000, 32, 8, 128, True),
+    (1, 1, 32, 8, 128, True),
+    (2, 200, 8, 2, 128, True),
+    (3, 130, 4, 4, 64, False),
+    (2, 333, 4, 4, 80, True),
+    (1, 77, 4, 2, 32, False),
 ]
-PAGED_SHAPES = [  # B, H, Hkv, d, N, bs, nb: tests/test_kernels.py, granite
+FUSED_SHAPES = [  # B, S, H, hd: q/k/v views of one (B, S, 3, H, hd) tensor
+    (4, 300, 8, 80),
+    (2, 129, 4, 64),
+    (4, 2048, 32, 80),   # zamba2-2.7b's shared block at the hybrid's prefill
+]
+PAGED_SHAPES = [  # B, H, Hkv, d, N, bs, nb: tests/test_kernels.py, granite,
+    # groups of 1 and 16
     (3, 4, 2, 64, 16, 8, 4),
     (2, 8, 8, 128, 32, 16, 3),
     (1, 4, 1, 32, 8, 4, 2),
     (8, 32, 8, 128, 1024, 16, 160),
+    (4, 8, 8, 128, 256, 16, 40),
+    (3, 32, 2, 128, 256, 16, 40),
 ]
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 3e-2)}
 
@@ -107,6 +121,27 @@ def test_flash_attention_kernel_equals_plain(B, S, H, Hkv, hd, causal, dtype,
     torch.cuda.synchronize()
     assert fops.launch_count == before + 1
     want = flash_attention_plain(q, k, v, causal)
+    tol = ATTN_TOL[dtype][0]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd", FUSED_SHAPES)
+def test_flash_attention_kernel_on_views_of_a_fused_tensor(B, S, H, hd, dtype,
+                                                           cuda_device):
+    """Strided q/k/v (H = Hkv), as a fused projection would hand them
+    over: TMA reads the views in place."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    rng = np.random.default_rng(S + hd)
+    qkv = _randn(rng, (B, S, 3, H, hd), dtype, cuda_device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = fops.launch_count
+    got = fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fops.launch_count == before + 1
+    want = flash_attention_plain(q, k, v, True)
     tol = ATTN_TOL[dtype][0]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
@@ -180,3 +215,36 @@ def test_mamba_scan_kernel_equals_plain(B, S, din, N, dtype, cuda_device):
         scale = float(y0.float().abs().max())
         assert float((y.float() - y0.float()).abs().max()) <= 2e-2 * scale
         torch.testing.assert_close(h, h0, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [16, 8])
+def test_paged_attention_kernel_at_split_and_page_boundaries(bs, dtype,
+                                                            cuda_device):
+    """Lengths of exactly one chunk, one split and one page, one past
+    each, and the table's whole capacity nb * bs, at granite's widths."""
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+    rng = np.random.default_rng(bs)
+    N, nb, H, Hkv, d = 512, 64, 32, 8, 128
+    lengths = [pops.CHUNK, pops.CHUNK + 1, bs, bs + 1, nb * bs, nb * bs - 1]
+    B = len(lengths)
+    n = pops.plan_splits(B, Hkv, nb * bs)
+    one_split = pops.split_range(0, nb * bs, n)[1]
+    lengths += [one_split, one_split + 1]
+    B = len(lengths)
+    q = _randn(rng, (B, H, d), dtype, cuda_device)
+    kp = _randn(rng, (N, bs, Hkv, d), dtype, cuda_device)
+    vp = _randn(rng, (N, bs, Hkv, d), dtype, cuda_device)
+    bt = torch.from_numpy(np.stack([rng.permutation(N)[:nb]
+                                    for _ in range(B)]).astype(np.int32))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    bt, lens = bt.to(cuda_device), lens.to(cuda_device)
+    before = pops.launch_count
+    got = pops.paged_attention(q, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    assert pops.launch_count == before + 1
+    want = paged_attention_plain(q, kp, vp, bt, lens)
+    tol = ATTN_TOL[dtype][1]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
