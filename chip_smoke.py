@@ -33,7 +33,7 @@ line.  Any mismatch or error exits non-zero before the result line, and
 so does a machine without CUDA.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --previous DIR   # attention kernels of the
+    python3 chip_smoke.py --previous DIR   # the four kernels of the
                                            # checkout DIR beside these
 """
 
@@ -44,6 +44,7 @@ import dataclasses
 import gc
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -1056,13 +1057,358 @@ def mamba_scan_time(dev):
                 library_ms=None, l2_flush_bytes=flush.numel() * 4)
 
 
+# -- the sweep path: kernel times, and the kernels of an earlier checkout ------
+
+TIMED_SWEEPS = ("w01-skewed", "w01-skewed/meta")  # tiers 1-2; tier 0
+SMEM_LATENCY_CYCLES = 30    # assumed: one dependent shared-memory round trip
+
+
+def sweep_inputs(tr, dev):
+    """The MRC sweep of trace ``tr`` as ``sweep_hits`` runs it: the
+    32-lane grid, the relabelled trace (and its unique count) on the card,
+    and a fresh grid state at the power-of-two universe."""
+    from repro_torch.core import traces
+    from repro_torch.core.engine import grid_init
+    from repro_torch.tuning.sweep import make_grid, relabel
+
+    fp = traces.footprint(tr)
+    grid = make_grid([max(8, int(fp * f)) for f in SWEEP_FRACS],
+                     SWEEP_WINDOWS)
+    d, u = relabel(tr)
+    return grid, torch.as_tensor(d, device=dev), u, grid_init(
+        grid, pow2(u), device=dev)
+
+
+def sweep_time(dev, name, tr):
+    """CUDA-event times of 3 launches of the 32-lane sweep of ``tr``, each
+    on a fresh state, beside the bytes bound and a dependency floor."""
+    from repro_torch.core.engine import grid_hit_counts
+    from repro_torch.kernels.cache_sim import ops
+
+    grid, shared, u, init = sweep_inputs(tr, dev)
+    times, counts = [], []
+    for _ in range(3):
+        states = clone(init)
+        launches0 = ops.launch_count
+        times += cuda_ms(lambda: counts.append(
+            grid_hit_counts("clock2q+", states, shared)))
+        require(ops.launch_count == launches0 + 1, "timed call not a launch")
+    ms = statistics.median(times)
+    L, T = len(grid), shared.numel()
+    # The bytes the function touches: the shared trace once; per lane, the
+    # u table entries the relabelled ids use (loc_w int8 + loc_s int32)
+    # and each ring at its logical size (the padding is never touched),
+    # read and written; the cursors read and written, the sizes read; the
+    # counts written.
+    ring_slots = {k: int(init[k].long().sum())
+                  for k in ("scap", "mcap", "gcap")}
+    touched = (L * u * (1 + 4) + ring_slots["scap"] * (4 + 1 + 4)
+               + ring_slots["mcap"] * (4 + 1) + ring_slots["gcap"] * 4)
+    moved = T * 4 + 2 * touched + L * 4 * (2 * 4 + 5) + L * 8
+    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+    ops_ms = 1e3 * T * L * STEP_OPS / SCALAR_OPS_PER_S
+    bound_ms = max(bytes_ms, ops_ms)
+    # The chain no lane can shorten: a miss or a Ghost hit reads the ring
+    # slot the previous one wrote; a window of hits needs its entries.
+    chain = int(T - int(counts[-1].min())) + -(-T // 32)
+    plan = ops.plan_view(ops.host_view(init, shared))
+    return dict(
+        phase="kernel_time", trace=name, lanes=L, requests=T,
+        universe=pow2(u), unique=u, ring_slots=ring_slots,
+        tiers=[plan.tiers.count(t) for t in range(4)],
+        smem_bytes=plan.smem_bytes, blocks_per_sm=plan.blocks_per_sm,
+        ms_runs=times, ms=ms, ns_per_step=1e6 * ms / T, bytes_moved=moved,
+        bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms,
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        roofline_share=bound_ms / ms,
+        dependency_floor_ms=1e3 * chain * SMEM_LATENCY_CYCLES / SM_CLOCK_HZ,
+        dependency_floor=f"{chain} dependent round trips in the longest "
+                         "lane (one per miss or Ghost hit, one per window of "
+                         "32 requests), each assumed one shared-memory "
+                         f"round trip of {SMEM_LATENCY_CYCLES} cycles at "
+                         f"{SM_CLOCK_HZ:.3g} Hz",
+        misses_max_lane=int(T - int(counts[-1].min())))
+
+
+def _kernel_dir(tree: str) -> str:
+    return os.path.join(os.path.abspath(tree), "src", "repro_torch",
+                        "kernels")
+
+
+def present_cache_sim():
+    """The present ``cache_sim`` as ``prepare(state, trace)``: the
+    wrapper's host work (checks, the host view) done at once, and a call
+    that launches the kernel alone (and counts no launch), so that a timing
+    window holds the kernel and not the host's read of the state."""
+    from repro_torch.kernels.cache_sim import build, ops
+
+    lib = build.load()
+
+    def prepare(state, trace):
+        _, widths = ops.check_state(state)
+        view = ops.host_view(state, trace)
+        return lambda: ops.launch(lib, state, trace, "counts", view, widths)
+    return prepare
+
+
+def previous_cache_sim(tree: str):
+    """The ``cache_sim`` of checkout ``tree`` as ``present_cache_sim``'s
+    ``prepare``: its source built and bound with its own ``SYMBOLS`` (its
+    ``ops.py`` would load this checkout's build).  Before the redesign the
+    C entry point took the state and the ring widths, with no tiers, key
+    range or shared memory; a later layout calls through the present
+    wrapper's argument list."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.cache_sim import build as cbuild
+
+    old = _load_module(os.path.join(_kernel_dir(tree), "cache_sim",
+                                    "build.py"), "previous_cache_sim_build")
+    lib = kbuild.load("cache_sim", old.SOURCE, old.SYMBOLS)
+    n_args = len(old.SYMBOLS["cache_sim_launch"])
+    require(n_args in (28, len(cbuild.SYMBOLS["cache_sim_launch"])),
+            f"{tree}: cache_sim_launch takes {n_args} arguments")
+    names = ("skey", "sref", "sseq", "spos", "seqctr", "mkey", "mref", "hand",
+             "gkey", "gpos", "loc_w", "loc_s", "scap", "mcap", "gcap",
+             "window", "skip_limit")
+
+    def prepare(state, trace):
+        """Per-lane hit counts of ``trace`` (one shared row), in place."""
+        from repro_torch.kernels.cache_sim import ops
+
+        _, widths = ops.check_state(state)
+        if n_args != 28:
+            view = ops.host_view(state, trace)
+            return lambda: ops.launch(lib, state, trace, "counts", view,
+                                      widths)
+        L = state["spos"].shape[0]
+        counts = torch.empty((L,), dtype=torch.int64, device=trace.device)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def go():
+            err = lib.cache_sim_launch(
+                trace.data_ptr(), 0, trace.numel(), None, counts.data_ptr(),
+                *(state[k].data_ptr() for k in names), L, widths["pS"],
+                widths["pM"], widths["pG"], widths["U"], stream)
+            require(err == 0, f"previous cache_sim launch failed ({err})")
+            return counts
+        return go
+    return old.SOURCE, prepare
+
+
+PREVIOUS_SWEEPS = TIMED_SWEEPS + ("w04-scans",)  # + tier 3's lanes
+PREVIOUS_REPLAYS = ("w01-skewed", "w04-scans")
+
+
+def _run_launches(prepare, state, rows):
+    """Replay ``rows`` (trace tensors, one launch each) through ``state``
+    in place: (hit counts summed over the launches, the launches' summed
+    CUDA-event ms)."""
+    total, ms = 0, 0.0
+    for row in rows:
+        go = prepare(state, row)
+        box = []
+        ms += cuda_ms(lambda: box.append(go()))[0]
+        total = total + box[0].long()
+    return total, ms
+
+
+def cache_sim_previous(dev, tree: str, named):
+    """``tree``'s ``cache_sim`` beside the present one, each kind of call
+    the main path makes: the 32-lane sweeps of ``PREVIOUS_SWEEPS`` (every
+    tier of the planner among them), and at ``suite_capacity`` of each of
+    ``PREVIOUS_REPLAYS`` a one-lane replay of the whole trace and one in
+    chunks of ``CHUNK`` requests.  Each is run in the order earlier,
+    present, present, earlier, on clones of one fresh state; the times are
+    the kernel launches' alone (CUDA events, the host's work outside
+    them); hits and states of the two must be equal."""
+    from repro_torch.core import torch_engine as te
+    from repro_torch.core import traces
+    from repro_torch.kernels.cache_sim import ops
+    from repro_torch.tuning.sweep import relabel
+
+    source, old_prepare = previous_cache_sim(tree)
+    new_prepare = present_cache_sim()
+    cases = []
+    for name in PREVIOUS_SWEEPS:
+        grid, shared, u, init = sweep_inputs(named[name], dev)
+        cases.append((name, "sweep", init, [shared]))
+    for name in PREVIOUS_REPLAYS:
+        d, u = relabel(named[name])
+        cap = traces.suite_capacity(d)
+        init = te.init_state("clock2q+", cap, u, device=dev)
+        row = torch.as_tensor(d, device=dev)
+        cases.append((name, "replay", init, [row]))
+        cases.append((name, "replay_chunked", init,
+                      [row[i:i + CHUNK] for i in range(0, len(d), CHUNK)]))
+    rec = dict(phase="cache_sim_previous", tree=tree, source=str(source),
+               order=["previous", "present", "present", "previous"],
+               cases=[])
+    for name, kind, init, rows in cases:
+        outs, ms = {}, []
+        for who in rec["order"]:
+            st = clone(init)
+            c, t = _run_launches(old_prepare if who == "previous"
+                                 else new_prepare, st, rows)
+            ms.append(t)
+            outs.setdefault(who, (c, st))
+        (c_old, s_old), (c_new, s_new) = outs["previous"], outs["present"]
+        err = max(int((c_old - c_new).abs().max()), state_err(s_old, s_new))
+        require(err == 0, f"cache_sim_previous {name} {kind}: present != "
+                          f"previous ({err})")
+        T = sum(r.numel() for r in rows)
+        plan = ops.plan_view(ops.host_view(init, rows[0]))
+        rec["cases"].append(dict(
+            trace=name, kind=kind, lanes=int(init["spos"].shape[0]),
+            requests=T, launches=len(rows),
+            tiers=[plan.tiers.count(t) for t in range(4)],
+            previous_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+            previous_ns_per_step=1e6 * ms[0] / T,
+            ns_per_step=1e6 * ms[1] / T, max_abs_err=err))
+        del outs
+    return rec
+
+
+TIER_SWEEPS = ("w01-skewed", "w04-scans")
+
+
+def tier_time(dev, named):
+    """What each partial tier buys: at the sweeps of ``TIER_SWEEPS``, the
+    lanes the planner keeps partly in shared memory (tiers 1 and 2),
+    each tier's lanes launched alone, and then the whole sweep, once with
+    the planner's tiers and once with that tier's lanes in device memory
+    (tier 3), in the order planned, device, device, planned; one launch
+    each, on clones of one fresh state, hits and states held equal."""
+    from repro_torch.kernels.cache_sim import ops
+
+    prepare = present_cache_sim()
+    planner = ops.plan_view
+    rec = dict(phase="tier_time", order=["planned", "device", "device",
+                                         "planned"], cases=[])
+    for name in TIER_SWEEPS:
+        grid, shared, u, init = sweep_inputs(named[name], dev)
+        tiers = planner(ops.host_view(init, shared)).tiers
+        for tier in sorted(set(tiers) & {ops.TIER_RINGS, ops.TIER_SMALL}):
+            idx = [i for i, t in enumerate(tiers) if t == tier]
+            sub = {k: v[idx].contiguous() for k, v in init.items()}
+            for who, st0 in (("lanes", sub), ("sweep", init)):
+                outs, ms = {}, []
+                for how in rec["order"]:
+                    def forced(view, how=how):
+                        p = planner(view)
+                        if how == "planned":
+                            return p
+                        return p._replace(tiers=[
+                            ops.TIER_GLOBAL if t == tier else t
+                            for t in p.tiers])
+                    st = clone(st0)
+                    ops.plan_view = forced
+                    try:
+                        c, t = _run_launches(prepare, st, [shared])
+                    finally:
+                        ops.plan_view = planner
+                    ms.append(t)
+                    outs.setdefault(how, (c, st))
+                (c_a, s_a), (c_b, s_b) = outs["planned"], outs["device"]
+                err = max(int((c_a - c_b).abs().max()), state_err(s_a, s_b))
+                require(err == 0, f"tier_time {name} tier {tier}: device "
+                                  f"memory != planned ({err})")
+                rec["cases"].append(dict(
+                    trace=name, tier=tier, launched=who,
+                    lanes=int(st0["spos"].shape[0]),
+                    capacities=[grid[i].capacity for i in idx],
+                    requests=shared.numel(), planned_ms=[ms[0], ms[3]],
+                    device_ms=[ms[1], ms[2]], max_abs_err=err))
+        del init
+    return rec
+
+
+def scan_previous(dev, tree: str):
+    """``tree``'s ``mamba_scan`` beside the present one at ``SCAN_MAIN``
+    (bf16 u/B/C as the model hands them, fp32 dt): medians of 20, L2
+    emptied by a 1 GiB read, in the order earlier, present, present,
+    earlier; max and mean |err| of y against the plain version on fp32
+    copies of the inputs, and of h_last."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
+
+    old = _load_module(os.path.join(_kernel_dir(tree), "mamba_scan",
+                                    "ops.py"), "previous_scan_ops")
+    flush = torch.empty(256 << 20, dtype=torch.float32, device=dev)
+    ins = scan_inputs(dev, SCAN_MAIN, torch.bfloat16,
+                      np.random.default_rng(3), R=SCAN_DT_RANK)
+    y0, h0 = mamba_scan_plain(*(t.float() for t in ins))
+    fns = dict(previous=lambda: old.mamba_scan(*ins),
+               present=lambda: sops.mamba_scan(*ins))
+    order = ["previous", "present", "present", "previous"]
+    ms = [statistics.median(warm_ms(fns[k], flush)) for k in order]
+    rec = dict(phase="scan_previous", tree=tree,
+               shape=f"bf16 u/B/C (B/C views of x_proj's output), fp32 dt, "
+                     f"(B, S, din, N) = {SCAN_MAIN}", order=order,
+               previous_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+               plan=sops.scan_plan(*SCAN_MAIN)._asdict(),
+               l2_flush_bytes=flush.numel() * 4)
+    for k in fns:
+        y, h = fns[k]()
+        dy = (y.float() - y0).abs()
+        rec[k + "_err"] = dict(y_max=float(dy.max()), y_mean=float(dy.mean()),
+                               h_last_max=float((h - h0).abs().max()))
+    return rec
+
+
+class LaunchTimes:
+    """CUDA-event times of every ``cache_sim`` kernel launch between
+    ``start`` and ``stop``, summed by the kind of call set in ``kind``: it
+    wraps the wrapper's ``ops.launch`` (the C call alone, after the
+    wrapper's checks)."""
+
+    def __init__(self, ops):
+        self.ops, self.kind, self.events = ops, None, []
+
+    def start(self):
+        launch = self.inner = self.ops.launch
+
+        def timed(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = launch(*args, **kw)
+            b.record()
+            self.events.append((self.kind, a, b))
+            return out
+        self.ops.launch = timed
+
+    def stop(self):
+        self.ops.launch = self.inner
+
+    def by_kind(self):
+        """{kind: {launches, ms}} over the recorded launches."""
+        torch.cuda.synchronize()
+        out = {}
+        for kind, a, b in self.events:
+            rec = out.setdefault(kind, dict(launches=0, ms=0.0))
+            rec["launches"] += 1
+            rec["ms"] += a.elapsed_time(b)
+        return out
+
+
+def suite_traces(traces):
+    """The 16 SUITE traces by name: each data trace and its metadata
+    trace (``name/meta``)."""
+    out = []
+    for spec in traces.SUITE:
+        d = spec.data()
+        out += [(spec.name, d), (spec.name + "/meta",
+                                 traces.derive_metadata(d))]
+    return out
+
+
 def main() -> int:
-    """Run every phase (or, with ``--previous``, only ``attn_previous``);
-    returns the exit code."""
+    """Run every phase (or, with ``--previous``, only ``attn_previous``,
+    ``scan_previous`` and ``cache_sim_previous``); returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--previous", metavar="DIR",
-                    help="only time the attention kernels of the checkout "
-                         "DIR (an earlier commit) beside the present ones")
+                    help="only time the four kernels of the checkout DIR "
+                         "(an earlier commit) beside the present ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1071,8 +1417,7 @@ def main() -> int:
     from repro_torch.core import torch_engine as te
     from repro_torch.core import traces
     from repro_torch.core.engine import (
-        get_engine, grid_hit_arrays, grid_hit_counts, grid_init, replay,
-        replay_chunked,
+        get_engine, grid_hit_arrays, grid_init, replay, replay_chunked,
     )
     from repro_torch.core.policies.clock2qplus import Clock2QPlus
     from repro_torch.kernels import build as kbuild
@@ -1091,7 +1436,17 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     if args.previous:
+        kdir = _kernel_dir(args.previous)
+        kbuild.build_many(
+            [("cache_sim", build.SOURCE), ("mamba_scan", sops.SOURCE)]
+            + [(k, pathlib.Path(kdir, k, "csrc", f"{k}.cu")) for k in (
+                "cache_sim", "mamba_scan", "flash_attention",
+                "paged_attention")])
         emit(attn_previous(dev, args.previous))
+        emit(scan_previous(dev, args.previous))
+        named = {name: tr for name, tr in suite_traces(traces)
+                 if name in PREVIOUS_SWEEPS + PREVIOUS_REPLAYS}
+        emit(cache_sim_previous(dev, args.previous, named))
         print(smi, flush=True)
         return 0
 
@@ -1113,12 +1468,7 @@ def main() -> int:
                    "mamba_scan")}))
 
     t0 = time.perf_counter()
-    data = {s.name: s.data() for s in traces.SUITE}
-    all_traces = []
-    for s in traces.SUITE:
-        all_traces.append((s.name, data[s.name]))
-        all_traces.append((s.name + "/meta",
-                           traces.derive_metadata(data[s.name])))
+    all_traces = suite_traces(traces)
     gen_s = time.perf_counter() - t0
 
     # -- kernel_vs_plain: tolerance 0 on every hit and state tensor ------------
@@ -1204,12 +1554,15 @@ def main() -> int:
     phase_t0 = time.perf_counter()
     ops.launch_count = 0
     per_trace = []
+    timer = LaunchTimes(ops)
+    timer.start()
     for name, tr in all_traces:
         fp = traces.footprint(tr)
         grid = make_grid([max(8, int(fp * f)) for f in SWEEP_FRACS],
                          SWEEP_WINDOWS)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
+        timer.kind = "sweep_hits"
         hits = sweep_hits(tr, grid)
         sweep_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
@@ -1221,6 +1574,7 @@ def main() -> int:
         # its oracle lanes equal the Python oracle request for request
         d, u = relabel(tr)
         t0 = time.perf_counter()
+        timer.kind = "grid_hit_arrays"
         lane_h = grid_hit_arrays(
             "clock2q+", grid_init(grid, pow2(u), device=dev),
             d).cpu().numpy()
@@ -1242,6 +1596,7 @@ def main() -> int:
         cap = traces.suite_capacity(d)
         t0 = time.perf_counter()
         st = te.init_state("clock2q+", cap, u)
+        timer.kind = "replay"
         _, h = replay("clock2q+", st, d)
         h = h[0].cpu().numpy()
         replay_s = time.perf_counter() - t0
@@ -1254,6 +1609,7 @@ def main() -> int:
                 f"{name}: kernel != oracle at capacity {cap} "
                 f"({int((h != oracle).sum())} requests differ)")
         t0 = time.perf_counter()
+        timer.kind = "replay_chunked"
         ch, n, st_c = replay_chunked(
             "clock2q+", (d[i:i + CHUNK] for i in range(0, len(d), CHUNK)),
             cap, u)
@@ -1270,8 +1626,13 @@ def main() -> int:
             oracle_lanes=oracle_lanes, lanes_oracle_s=lanes_oracle_s,
             oracle_equal=True, chunked_equal=True))
     launches = ops.launch_count
+    timer.stop()
+    by_kind = timer.by_kind()
     require(launches > 0, "the main path launched no cache_sim kernel")
+    require(sum(k["launches"] for k in by_kind.values()) == launches,
+            f"timed launches {by_kind} != {launches}")
     emit(dict(phase="main_path", launches=launches,
+              kernel_ms_by_kind=by_kind,
               seconds=time.perf_counter() - phase_t0, traces=per_trace))
 
     # -- long_stream: a day-scale metadata stream, chunked == single shot ------
@@ -1297,40 +1658,13 @@ def main() -> int:
               miss_ratio=1.0 - single / len(d), single_shot_s=single_s,
               chunked_s=chunked_s, chunked_equal=True, trace_gen_s=gen_s))
 
-    # -- kernel_time: the w01-skewed sweep, median of 3, with its bound --------
-    tr = named["w01-skewed"]
-    fp = traces.footprint(tr)
-    grid = make_grid([max(8, int(fp * f)) for f in SWEEP_FRACS], SWEEP_WINDOWS)
-    d, u = relabel(tr)
-    shared = torch.as_tensor(d, device=dev)
-    times = []
-    for _ in range(3):
-        states = grid_init(grid, pow2(u), device=dev)
-        launches0 = ops.launch_count
-        times += cuda_ms(lambda: grid_hit_counts("clock2q+", states, shared))
-        require(ops.launch_count == launches0 + 1, "timed call not a launch")
-    ms = statistics.median(times)
-    L, T = len(grid), len(d)
-    # The bytes the function touches: the shared trace once; per lane, the
-    # u table entries the relabelled ids use (loc_w int8 + loc_s int32)
-    # and each ring at its logical size (the padding is never touched),
-    # read and written; the cursors read and written, the sizes read; the
-    # counts written.
-    ring_slots = {k: int(states[k].long().sum())
-                  for k in ("scap", "mcap", "gcap")}
-    touched = (L * u * (1 + 4) + ring_slots["scap"] * (4 + 1 + 4)
-               + ring_slots["mcap"] * (4 + 1) + ring_slots["gcap"] * 4)
-    moved = T * 4 + 2 * touched + L * 4 * (2 * 4 + 5) + L * 8
-    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
-    ops_ms = 1e3 * T * L * STEP_OPS / SCALAR_OPS_PER_S
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    emit(dict(phase="kernel_time", trace="w01-skewed", lanes=L, requests=T,
-              universe=pow2(u), unique=u, ring_slots=ring_slots,
-              ms_runs=times, ms=ms,
-              ns_per_step=1e6 * ms / T, bytes_moved=moved, bytes_ms=bytes_ms,
-              ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by,
-              roofline_share=bound_ms / ms))
+    # -- kernel_time: the timed sweeps, median of 3, with their bounds ---------
+    sweeps = {}
+    for name in TIMED_SWEEPS:
+        sweeps[name] = sweep_time(dev, name, named[name])
+        emit(sweeps[name])
+    kt, kt_meta = sweeps["w01-skewed"], sweeps["w01-skewed/meta"]
+    emit(tier_time(dev, named))
 
     # -- the serving path: kernels, full model, consistency, kernel times ------
     check = attn_kernels_vs_plain(dev)
@@ -1369,12 +1703,16 @@ def main() -> int:
         name="cache_sim", route="cuda",
         source="src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu",
         replaces="src/repro/kernels/cache_sim/cache_sim.py:46",
-        launches=launches, max_abs_err=max_abs_err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        launches=launches, max_abs_err=max_abs_err, ms=kt["ms"],
+        plain_ms=plain_ms, bound_ms=kt["bound_ms"], bound_by=kt["bound_by"],
         library_ms=None,
-        ms_shape=f"w01-skewed sweep: {L} lanes x {T} requests",
+        ms_shape=f"w01-skewed sweep: {kt['lanes']} lanes x "
+                 f"{kt['requests']} requests",
         plain_shape=f"{len(configs)} lanes x {PREFIX} requests",
-        kernel_ms_at_plain_shape=prefix_ms, ns_per_step=1e6 * ms / T),
+        kernel_ms_at_plain_shape=prefix_ms, ns_per_step=kt["ns_per_step"],
+        at_meta_sweep={k: kt_meta[k] for k in (
+            "trace", "lanes", "requests", "ms", "ns_per_step", "bound_ms",
+            "bound_by")}),
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/paged_attention/csrc/"
                     "paged_attention.cu",

@@ -7,12 +7,18 @@ tensors, and only there, it runs the plain version (``ref.py``).
 
 ``launch_count`` counts kernel launches (a plain integer; reset it by
 assigning 0), so a run can show that its path went through the kernel.
+
+``plan_lane`` (plain Python) picks where the kernel keeps each lane: the
+whole lane in one block's shared memory, its rings there, its Small and
+Ghost rings there, or all of it in device memory; ``plan_launch`` plans a
+whole grid (``tests/test_torch_kernel_plan.py`` holds both on the CPU).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.engine.clock2qplus import STATE_DTYPES
@@ -24,6 +30,89 @@ launch_count = 0
 _OUTS = ("hits", "counts")
 _RINGS = dict(skey="pS", sref="pS", sseq="pS", mkey="pM", mref="pM",
               gkey="pG", loc_w="U", loc_s="U")
+
+
+# Shared memory on the card (H100, sm_90): the most one block may use, an
+# SM's whole, the share the system keeps of each block, the blocks an SM
+# may hold, and the granule of an allocation.
+SMEM_BLOCK = 232_448
+SMEM_SM = 233_472
+SMEM_RESERVED = 1_024
+MAX_BLOCKS_SM = 32
+SMEM_GRANULE = 128
+# Every block stages the trace through a ring of 16 windows of 32 keys.
+TRACE_BYTES = 16 * 32 * 4
+# Where a lane lives (the kernel's ``tier``): the whole lane in shared
+# memory; the rings there and the location table in device memory; the
+# Small and Ghost rings there and the Main ring and the table in device
+# memory; all in device memory.
+TIER_WHOLE, TIER_RINGS, TIER_SMALL, TIER_GLOBAL = 0, 1, 2, 3
+
+
+class LanePlan(NamedTuple):
+    """One lane's tier, its shared-memory bytes, and how many blocks of
+    that size an SM holds."""
+    tier: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def small_bytes(scap: int, gcap: int) -> int:
+    """Bytes of a lane's Small and Ghost rings at their logical sizes:
+    skey, sseq (int32) and sref (bool) per Small slot, gkey per Ghost
+    slot."""
+    return 9 * scap + 4 * gcap
+
+
+def ring_bytes(scap: int, mcap: int, gcap: int) -> int:
+    """Bytes of all a lane's rings: ``small_bytes`` and mkey (int32) and
+    mref (bool) per Main slot."""
+    return small_bytes(scap, gcap) + 5 * mcap
+
+
+def table_bytes(K: int) -> int:
+    """Bytes of ``loc_w`` (int8) and ``loc_s`` (int32) over keys [0, K)."""
+    return 5 * K
+
+
+def blocks_per_sm(smem_bytes: int) -> int:
+    """Blocks of ``smem_bytes`` of shared memory one SM holds at once."""
+    need = -(-smem_bytes // SMEM_GRANULE) * SMEM_GRANULE + SMEM_RESERVED
+    return min(MAX_BLOCKS_SM, SMEM_SM // need)
+
+
+def plan_lane(scap: int, mcap: int, gcap: int, K: int) -> LanePlan:
+    """Where the kernel keeps a lane of logical sizes ``scap``/``mcap``/
+    ``gcap`` over keys [0, K): the most of it, in this order, that fits
+    one block's shared memory beside the trace ring (the whole lane, its
+    rings, its Small and Ghost rings); the rest in device memory."""
+    rings = ring_bytes(scap, mcap, gcap)
+    for tier, smem in ((TIER_WHOLE, rings + table_bytes(K)),
+                       (TIER_RINGS, rings),
+                       (TIER_SMALL, small_bytes(scap, gcap)),
+                       (TIER_GLOBAL, 0)):
+        if smem + TRACE_BYTES <= SMEM_BLOCK:
+            break
+    smem += TRACE_BYTES
+    return LanePlan(tier, smem, blocks_per_sm(smem))
+
+
+class LaunchPlan(NamedTuple):
+    """A launch's per-lane tiers, the shared memory of each of its blocks
+    (the most any lane needs) and the blocks an SM holds."""
+    tiers: List[int]
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def plan_launch(scap: Sequence[int], mcap: Sequence[int],
+                gcap: Sequence[int], K: int) -> LaunchPlan:
+    """``plan_lane`` for every lane of a grid; one launch serves them
+    all, every block with the shared memory of the largest."""
+    lanes = [plan_lane(int(s), int(m), int(g), K)
+             for s, m, g in zip(scap, mcap, gcap)]
+    smem = max((p.smem_bytes for p in lanes), default=0)
+    return LaunchPlan([p.tier for p in lanes], smem, blocks_per_sm(smem))
 
 
 def check_state(state: Dict[str, torch.Tensor]):
@@ -74,14 +163,51 @@ def _check(state: Dict[str, torch.Tensor], trace: torch.Tensor, out: str):
     return L, trace.shape[-1], widths
 
 
-def _check_values(state, trace, widths) -> None:
+def host_view(state, trace) -> Dict[str, np.ndarray]:
+    """What the host needs of a launch, in one read from the device: the
+    largest trace key, the largest ring key (-1 where there is none) and
+    the per-lane logical sizes."""
+    none = torch.full((1,), -1, dtype=torch.int32, device=trace.device)
+    peaks = [trace.max().view(1) if trace.numel() else none]
+    peaks += [state[k].max().view(1) if state[k].numel() else none
+              for k in ("skey", "mkey", "gkey")]
+    flat = torch.cat(peaks + [state[k] for k in ("scap", "mcap", "gcap")])
+    host = flat.cpu().numpy().astype(np.int64)
+    L = state["scap"].shape[0]
+    return dict(trace_max=int(host[0]), ring_max=int(host[1:4].max()),
+                scap=host[4:4 + L], mcap=host[4 + L:4 + 2 * L],
+                gcap=host[4 + 2 * L:])
+
+
+def key_range(state: Dict[str, torch.Tensor], trace: torch.Tensor) -> int:
+    """K, the keys a launch can touch: 1 + the largest key of the trace
+    and of the state's rings (a chunked replay's rings hold keys of
+    earlier chunks).  Every index of ``loc_*`` a launch reads or writes is
+    below it."""
+    return _key_range(host_view(state, trace))
+
+
+def _key_range(view) -> int:
+    return 1 + max(view["trace_max"], view["ring_max"], 0)
+
+
+def plan_view(view) -> LaunchPlan:
+    """The launch plan of a ``host_view``: its lanes' tiers over K."""
+    return plan_launch(view["scap"], view["mcap"], view["gcap"],
+                       _key_range(view))
+
+
+def _check_values(view, widths) -> None:
     """The kernel indexes with these values: hold them to the layout."""
-    if trace.numel() and int(trace.max()) >= widths["U"]:
-        raise ValueError(f"trace key {int(trace.max())} outside the "
-                         f"universe [0, {widths['U']})")
-    caps = torch.stack([state["scap"], state["mcap"], state["gcap"]]).cpu()
-    for row, w in zip(caps, (widths["pS"], widths["pM"], widths["pG"])):
-        if int(row.min()) < 1 or int(row.max()) > w:
+    for what, peak in (("trace", view["trace_max"]),
+                       ("ring", view["ring_max"])):
+        if peak >= widths["U"]:
+            raise ValueError(f"{what} key {peak} outside the universe "
+                             f"[0, {widths['U']})")
+    for name, w in (("scap", widths["pS"]), ("mcap", widths["pM"]),
+                    ("gcap", widths["pG"])):
+        row = view[name]
+        if row.size and (int(row.min()) < 1 or int(row.max()) > w):
             raise ValueError(f"logical sizes {row.tolist()} outside the "
                              f"physical ring width {w}")
 
@@ -96,15 +222,30 @@ def cache_sim(state: Dict[str, torch.Tensor], trace: torch.Tensor,
     int64 for ``out="counts"`` (no L x T array is built)."""
     global launch_count
     L, T, widths = _check(state, trace, out)
-    _check_values(state, trace, widths)
+    view = host_view(state, trace)
+    _check_values(view, widths)
     if trace.device.type == "cpu":
         return cache_sim_plain(state, trace, out)
     if trace.device.type != "cuda":
         raise ValueError(f"cache_sim runs on cuda or cpu, not {trace.device}")
     from repro_torch.kernels.cache_sim.build import load
 
-    lib = load()
+    result = launch(load(), state, trace, out, view, widths)
+    launch_count += 1
+    return result
+
+
+def launch(lib, state: Dict[str, torch.Tensor], trace: torch.Tensor,
+           out: str, view, widths) -> torch.Tensor:
+    """One launch of library ``lib``'s kernel on checked inputs (``view``
+    from ``host_view``, ``widths`` from ``check_state``): plans the
+    lanes' tiers and returns what ``cache_sim`` returns.  It does not
+    count the launch."""
+    L, T = state["spos"].shape[0], trace.shape[-1]
     dev = trace.device
+    K = _key_range(view)
+    plan = plan_view(view)
+    tiers = torch.tensor(plan.tiers, dtype=torch.int32).to(dev)
     hits = torch.empty((L, T), dtype=torch.bool, device=dev) \
         if out == "hits" else None
     counts = torch.empty((L,), dtype=torch.int64, device=dev) \
@@ -119,9 +260,9 @@ def cache_sim(state: Dict[str, torch.Tensor], trace: torch.Tensor,
             *(s[k].data_ptr() for k in (
                 "skey", "sref", "sseq", "spos", "seqctr", "mkey", "mref",
                 "hand", "gkey", "gpos", "loc_w", "loc_s", "scap", "mcap",
-                "gcap", "window", "skip_limit")),
-            L, widths["pS"], widths["pM"], widths["pG"], widths["U"], stream)
+                "gcap", "window", "skip_limit")), tiers.data_ptr(),
+            L, widths["pS"], widths["pM"], widths["pG"], widths["U"], K,
+            plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"cache_sim launch failed: CUDA error {err}")
-    launch_count += 1
     return hits if out == "hits" else counts

@@ -13,42 +13,49 @@
 // There is no padding: the time loop stops at S, which leaves the same state
 // as the reference's ragged tail masked with dt = 0.
 //
-// Design: one thread per channel, with its N states and its N values of A
-// (computed once, not per step) in fp32 registers; a block holds 128
-// neighbouring channels of one sequence, and the grid is (din / 128, B).
-// Blocks carry nothing between them: the TPU grid's sequential chunk axis
-// becomes the time loop inside the block.  The loop walks the sequence in
-// chunks of 64 steps.  For each chunk every thread first stages its own
-// column of u and dt in shared memory (for each step the warp reads 32
-// neighbouring channels, so the loads coalesce; they go through registers
-// 16 steps at a time, so a chunk costs four round trips to device memory
-// and not one per step), and the block stages the chunk's B and C rows,
-// which all its channels share.  Then the serial recurrence runs from
-// shared memory; y is stored at once, the warp's 32 stores coalesced, and
-// h_last once at the end.  The sum over N is split four ways to shorten its
-// dependent chain.  exp is expf (no fast math), so the fp32 result holds to
-// the plain version at 1e-4.
+// Design: a channel's N states and their N values of A log2(e) (computed
+// once, not per step) live in fp32 registers, split over a pair of
+// neighbouring threads (NP / 2 states each; one thread a channel where
+// N <= 4), so twice the warps are in flight for the same exponentials; one
+// __shfl_xor_sync a step adds the pair's halves of y.  A block of 128
+// threads holds 64 neighbouring channels of one sequence, and the grid is
+// (din / 64, B).  Blocks carry nothing between them: the TPU grid's
+// sequential chunk axis becomes the time loop inside the block.  The loop
+// walks the sequence in chunks of 64 steps: the block stages the chunk's u
+// and dt for its channels (consecutive threads on consecutive channels, so
+// the loads coalesce; 16 loads in flight a thread) and its B and C rows in
+// shared memory, then runs the serial recurrence from there; y is stored at
+// once through a running pointer, h_last once at the end.  exp(dt A) is one
+// ex2.approx.ftz of dt * (A log2(e)) (a single MUFU.EX2, relative error
+// about 2^-22), where expf was a range reduction and fix-ups around one.
 //
 // What bounds it on this card: at falcon-mamba-7b's prefill shape (B 4,
 // S 2048, din 8192, N 16) the function reads and writes about 0.54 GB (u
 // and y in bf16, dt in fp32, B, C, h_last), 0.16 ms at 3.35 TB/s, and takes
 // B S din N = 1.07e9 exponentials, 0.26 ms at the special-function units'
-// 16 a clock per SM: operations, narrowly.  256 blocks of 128 threads fill
-// the 132 SMs thinly, so latency is the risk; this first version hides it
-// with the staged chunks and the independent states of each thread, and
-// does not overlap a chunk's loads with the previous chunk's arithmetic.
-// Splitting a channel's states over 4 lanes (a shuffle sum for y) was
-// slower at N = 16 and faster at N = 64 (PERF.md).
+// 16 a clock per SM: operations, narrowly.  The launch is 512 blocks of 128
+// threads and 40 KB of shared memory; registers promise 4 blocks an SM
+// (__launch_bounds__) and shared memory 5, so 4 x 132 = 528 >= 512 and the
+// grid is resident in one wave (ops.scan_plan).  Each state-step is an
+// FMUL (dt A'), the MUFU.EX2, an FMUL (dt u B) and two FFMAs (h, y): the
+// state loop's SASS is 118 instructions for 2 steps x 8 states, 7.4 a
+// state-step with the steps' shared-memory loads, shuffle and store
+// (tools/sass_loop_count.py; the expf version: 14.3), so the issue slots
+// (about 0.24 ms at this shape) and the special-function units (0.26 ms)
+// bind together.  Evaluating a quarter of the exponentials as a
+// polynomial on the FMA pipe was slower, and so were 4 threads a channel
+// and 1 (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;   // channels per block
+constexpr int kThreads = 128;   // threads per block
 constexpr int kChunk = 64;      // time steps staged per pass
 constexpr int kBatch = 16;      // loads in flight per thread while staging
 constexpr int kMaxState = 64;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -63,70 +70,100 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
+// 2^x on the special-function unit: one MUFU.EX2, relative error about
+// 2^-22, subnormal results flushed to 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 struct Strides {  // element strides of (batch, time); the last axis is 1
   long long u_b, u_s, dt_b, dt_s, b_b, b_s, c_b, c_s;
 };
 
-size_t smem_bytes(int NP) {
-  return sizeof(float) *
-         (2 * (size_t)kChunk * kThreads + 2 * (size_t)kChunk * NP);
+// Shared memory of a block: u and dt of kChunk steps for its channels,
+// and B and C of kChunk steps (rows of NP floats).  ops.scan_plan mirrors it.
+size_t smem_bytes(int NP, int split) {
+  return sizeof(float) * (2 * (size_t)kChunk * (kThreads / split) +
+                          2 * (size_t)kChunk * NP);
 }
 
 // NP: N rounded up to the power of two the states are unrolled to, so that
 // h[] and A[] stay in registers; states n >= N are skipped.  kFull: N == NP
-// (falcon-mamba's 16), compiled without that test in the step loop, which
-// the compiler otherwise keeps as a branch per state: it more than halves
-// the time.
-template <typename T, typename TD, int NP, bool kFull>
-__global__ void __launch_bounds__(kThreads) mamba_scan_kernel(
+// (falcon-mamba's 16), compiled without that test in the step loop.
+// kSplit: threads a channel (1 or 2); each of kSplit neighbouring threads
+// runs NP / kSplit of the channel's states, and __shfl_xor_sync adds their
+// parts of y.  The second argument of __launch_bounds__ is the blocks an SM
+// is promised by the register budget (ops.scan_plan mirrors it).
+template <int NT>
+constexpr int min_blocks() { return NT <= 16 ? 4 : 2; }
+
+template <typename T, typename TD, int NP, bool kFull, int kSplit>
+__global__ void __launch_bounds__(kThreads, min_blocks<NP / kSplit>())
+mamba_scan_kernel(
     const T* __restrict__ u, const TD* __restrict__ dt,
     const T* __restrict__ Bc, const T* __restrict__ Cc,
     const float* __restrict__ A_log, T* __restrict__ y,
     float* __restrict__ h_last, Strides st, int S, int din, int N) {
+  constexpr int kCh = kThreads / kSplit;   // channels per block
+  constexpr int NT = NP / kSplit;          // states per thread
   extern __shared__ float smem[];
-  float* su = smem;                        // [kChunk][kThreads]
-  float* sdt = su + kChunk * kThreads;     // [kChunk][kThreads]
-  float* sb = sdt + kChunk * kThreads;     // [kChunk][NP], 16-byte rows
+  float* su = smem;                        // [kChunk][kCh]
+  float* sdt = su + kChunk * kCh;          // [kChunk][kCh]
+  float* sb = sdt + kChunk * kCh;          // [kChunk][NP], 16-byte rows
   float* sc = sb + kChunk * NP;            // [kChunk][NP]
 
   const int tid = threadIdx.x;
+  const int cl = tid / kSplit;             // the block's channel
+  const int n0 = (tid % kSplit) * NT;      // this thread's first state
   const long long b = blockIdx.y;
-  const int d = blockIdx.x * kThreads + tid;
+  const int d0 = blockIdx.x * kCh;
+  const int d = d0 + cl;
   const bool live = d < din;
 
-  float A[NP], h[NP];
+  // A * log2(e), once per (channel, state): the step's exp(dt A) is then
+  // one ex2 of dt * A2.
+  float A2[NT], h[NT];
 #pragma unroll
-  for (int n = 0; n < NP; ++n) {
-    A[n] = (live && n < N) ? -expf(A_log[(long long)d * N + n]) : 0.f;
-    h[n] = 0.f;
+  for (int i = 0; i < NT; ++i) {
+    const int n = n0 + i;
+    A2[i] = (live && n < N) ? -expf(A_log[(long long)d * N + n]) * kLog2e
+                            : 0.f;
+    h[i] = 0.f;
   }
-  const T* ub = u + b * st.u_b + d;
-  const TD* db = dt + b * st.dt_b + d;
+  const T* ub = u + b * st.u_b + d0;
+  const TD* db = dt + b * st.dt_b + d0;
   const T* bb = Bc + b * st.b_b;
   const T* cb = Cc + b * st.c_b;
-  T* yb = y + b * (long long)S * din + d;
+  T* yp = y + b * (long long)S * din + d;  // y of (b, step, d)
 
   for (int t0 = 0; t0 < S; t0 += kChunk) {
     const int steps = min(kChunk, S - t0);
-    // Loads go to registers kBatch at a time, all issued before the first
-    // store, so a batch costs one round trip to device memory and not one
-    // per step.  Indices past the chunk are clamped to its last step (a
-    // valid address); those values are never stored.
-    if (live) {  // this thread's column; read back only by this thread
-      for (int t = 0; t < steps; t += kBatch) {
-        float uv[kBatch], dv[kBatch];
+    // Stage u and dt of the block's channels: consecutive threads take
+    // consecutive channels of one step, so the loads coalesce.  Loads go
+    // to registers kBatch at a time, all issued before the first store, so
+    // a batch costs one round trip to device memory.  Indices past the
+    // chunk or the channels are clamped to a valid address; those values
+    // are stored as 0 or not at all.
+    const int nud = steps * kCh;
+    for (int i0 = 0; i0 < nud; i0 += kBatch * kThreads) {
+      float uv[kBatch], dv[kBatch];
 #pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-          const long long tt = t0 + min(t + j, steps - 1);
-          uv[j] = to_f(ub[tt * st.u_s]);
-          dv[j] = to_f(db[tt * st.dt_s]);
-        }
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = min(i0 + j * kThreads + tid, nud - 1);
+        const int t = i / kCh, c = min(i % kCh, din - 1 - d0);
+        const long long tt = t0 + t;
+        uv[j] = to_f(ub[tt * st.u_s + c]);
+        dv[j] = to_f(db[tt * st.dt_s + c]);
+      }
 #pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-          if (t + j < steps) {
-            su[(t + j) * kThreads + tid] = uv[j];
-            sdt[(t + j) * kThreads + tid] = dv[j];
-          }
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + j * kThreads + tid;
+        if (i < nud) {
+          const bool in = d0 + i % kCh < din;
+          su[i] = in ? uv[j] : 0.f;
+          sdt[i] = in ? dv[j] : 0.f;
         }
       }
     }
@@ -151,53 +188,58 @@ __global__ void __launch_bounds__(kThreads) mamba_scan_kernel(
       }
     }
     __syncthreads();
-    if (live) {
-      for (int t = 0; t < steps; ++t) {
-        const float dtv = sdt[t * kThreads + tid];
-        const float dtu = dtv * su[t * kThreads + tid];
-        // B and C of this step, four states a load (16-byte shared loads)
-        const float4* bt = reinterpret_cast<const float4*>(sb + t * NP);
-        const float4* ct = reinterpret_cast<const float4*>(sc + t * NP);
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    // Every thread runs the recurrence (a thread past din on zeros), so
+    // both threads of a pair reach the shuffle; only live ones store.
+    for (int t = 0; t < steps; ++t) {
+      const float dtv = sdt[t * kCh + cl];
+      const float dtu = dtv * su[t * kCh + cl];
+      // B and C of this thread's states, four a load (16-byte shared loads)
+      const float4* bt = reinterpret_cast<const float4*>(sb + t * NP + n0);
+      const float4* ct = reinterpret_cast<const float4*>(sc + t * NP + n0);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int q = 0; q < NP / 4; ++q) {
-          const float4 b4 = bt[q], c4 = ct[q];
-          const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
-          const float cq[4] = {c4.x, c4.y, c4.z, c4.w};
+      for (int q = 0; q < NT / 4; ++q) {
+        const float4 b4 = bt[q], c4 = ct[q];
+        const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
+        const float cq[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int n = 4 * q + k;
-            if (kFull || n < N) {
-              h[n] = expf(dtv * A[n]) * h[n] + dtu * bq[k];
-              acc[k] += h[n] * cq[k];
-            }
+        for (int k = 0; k < 4; ++k) {
+          const int i = 4 * q + k;
+          if (kFull || n0 + i < N) {
+            h[i] = exp2_approx(dtv * A2[i]) * h[i] + dtu * bq[k];
+            acc[k] += h[i] * cq[k];
           }
         }
-        yb[(long long)(t0 + t) * din] =
-            from_f<T>((acc[0] + acc[1]) + (acc[2] + acc[3]));
       }
+      float yv = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+#pragma unroll
+      for (int m = 1; m < kSplit; m *= 2)
+        yv += __shfl_xor_sync(0xffffffffu, yv, m);
+      if (live && n0 == 0) *yp = from_f<T>(yv);
+      yp += din;
     }
-    __syncthreads();  // the next chunk overwrites B and C
+    __syncthreads();  // the next chunk overwrites the staged rows
   }
   if (live) {
-    float* hb = h_last + (b * din + d) * (long long)N;
+    float* hb = h_last + (b * din + d) * (long long)N + n0;
 #pragma unroll
-    for (int n = 0; n < NP; ++n)
-      if (n < N) hb[n] = h[n];
+    for (int i = 0; i < NT; ++i)
+      if (n0 + i < N) hb[i] = h[i];
   }
 }
 
-template <typename T, typename TD, int NP>
+template <typename T, typename TD, int NP, int kSplit>
 int launch_n(const void* u, const void* dt, const void* Bc, const void* Cc,
              const void* A_log, void* y, void* h_last, const Strides& st,
              int B, int S, int din, int N, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NP);
-  auto kern = N == NP ? mamba_scan_kernel<T, TD, NP, true>
-                      : mamba_scan_kernel<T, TD, NP, false>;
+  const size_t smem = smem_bytes(NP, kSplit);
+  auto kern = N == NP ? mamba_scan_kernel<T, TD, NP, true, kSplit>
+                      : mamba_scan_kernel<T, TD, NP, false, kSplit>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((din + kThreads - 1) / kThreads, B);
+  constexpr int kCh = kThreads / kSplit;
+  dim3 grid((din + kCh - 1) / kCh, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(u), static_cast<const TD*>(dt),
       static_cast<const T*>(Bc), static_cast<const T*>(Cc),
@@ -206,24 +248,33 @@ int launch_n(const void* u, const void* dt, const void* Bc, const void* Cc,
   return (int)cudaGetLastError();
 }
 
+// Two threads a channel where NP >= 8, one at NP = 4 (ops.scan_plan).
+template <typename T, typename TD, int NP>
+int launch_np(const void* u, const void* dt, const void* Bc, const void* Cc,
+              const void* A_log, void* y, void* h_last, const Strides& st,
+              int B, int S, int din, int N, cudaStream_t s) {
+  return launch_n<T, TD, NP, (NP >= 8 ? 2 : 1)>(u, dt, Bc, Cc, A_log, y,
+                                                h_last, st, B, S, din, N, s);
+}
+
 template <typename T, typename TD>
 int launch(const void* u, const void* dt, const void* Bc, const void* Cc,
            const void* A_log, void* y, void* h_last, const Strides& st, int B,
            int S, int din, int N, cudaStream_t s) {
   if (N <= 4)
-    return launch_n<T, TD, 4>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S, din,
-                              N, s);
+    return launch_np<T, TD, 4>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
+                               din, N, s);
   if (N <= 8)
-    return launch_n<T, TD, 8>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S, din,
-                              N, s);
+    return launch_np<T, TD, 8>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
+                               din, N, s);
   if (N <= 16)
-    return launch_n<T, TD, 16>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
-                               din, N, s);
+    return launch_np<T, TD, 16>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
+                                din, N, s);
   if (N <= 32)
-    return launch_n<T, TD, 32>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
-                               din, N, s);
-  return launch_n<T, TD, kMaxState>(u, dt, Bc, Cc, A_log, y, h_last, st, B,
-                                    S, din, N, s);
+    return launch_np<T, TD, 32>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
+                                din, N, s);
+  return launch_np<T, TD, kMaxState>(u, dt, Bc, Cc, A_log, y, h_last, st, B,
+                                     S, din, N, s);
 }
 
 }  // namespace
@@ -253,6 +304,7 @@ extern "C" int mamba_scan_launch(const void* u, const void* dt,
                                         B, S, din, N, s);
   if (dtype == 1 && dt_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(u, dt, Bc, Cc, A_log, y,
-                                                h_last, st, B, S, din, N, s);
+                                                h_last, st, B, S, din, N,
+                                                s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,12 +11,15 @@ the plain version (``ref.py``).
 
 ``launch_count`` counts kernel launches (a plain integer; reset it by
 assigning 0), so a run can show that its path went through the kernel.
+``scan_plan`` (plain Python) gives a launch's shape: threads a channel,
+blocks, shared memory and whether the grid is resident in one wave.
 """
 
 from __future__ import annotations
 
 import ctypes
 import pathlib
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +30,44 @@ _p, _i32 = ctypes.c_void_p, ctypes.c_int
 SYMBOLS = {"mamba_scan_launch": [_p] * 8 + [_i32] * 6 + [_p]}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE, MAX_BATCH = 64, 65535   # N; B is the grid's y extent
+# The kernel's block (csrc/mamba_scan.cu): threads, time steps staged a
+# pass; the card's SMs (H100 SXM) and shared memory (an SM's whole, and
+# the system's share of each block).
+THREADS, CHUNK = 128, 64
+SMS, SMEM_SM, SMEM_RESERVED = 132, 233_472, 1_024
+
+
+class ScanPlan(NamedTuple):
+    """A launch: threads a channel (``split``), channels a block, the
+    grid's blocks, each block's shared memory, the blocks an SM holds at
+    once (the smaller of what its shared memory and the register budget
+    the kernel is compiled to allow), and whether every block is resident
+    at once on the card's SMs."""
+    split: int
+    channels: int
+    blocks: int
+    smem_bytes: int
+    blocks_per_sm: int
+    one_wave: bool
+
+
+def scan_plan(B: int, S: int, din: int, N: int) -> ScanPlan:
+    """The launch of a scan of (B, S, din, N): two threads a channel
+    where N > 4 (each runs half its states, so twice the warps are in
+    flight for the same exponentials), else one."""
+    NP = max(4, 1 << (N - 1).bit_length())
+    split = 2 if NP >= 8 else 1
+    channels = THREADS // split
+    smem = 4 * (2 * CHUNK * channels + 2 * CHUNK * NP)
+    blocks = -(-din // channels) * B
+    # csrc/mamba_scan.cu's min_blocks: the blocks an SM the register budget
+    # promises, by states a thread
+    nt = NP // split
+    by_regs = 4 if nt <= 16 else 2
+    per_sm = min(by_regs, SMEM_SM // (smem + SMEM_RESERVED))
+    return ScanPlan(split, channels, blocks, smem, per_sm,
+                    blocks <= SMS * per_sm)
+
 
 # Number of kernel launches in this process.
 launch_count = 0

@@ -68,6 +68,132 @@ def test_sweep_through_the_kernel_equals_the_cpu_path(cuda_device):
     assert np.array_equal(got, psweep.sweep_hits(tr, grid, device="cpu"))
 
 
+# -- cache_sim: each tier of the planner, and a mixed launch ---------------------
+
+
+def _filled_state(cfgs, U, seed, device):
+    """A grid state whose rings are already full of distinct keys (as far
+    as U allows), with random refs, ages and cursors and a location table
+    that agrees: the victim search then walks long runs of set refs from
+    the first request on."""
+    st = peng.grid_init(cfgs, U, device="cpu")
+    rng = np.random.default_rng(seed)
+    for l in range(len(cfgs)):
+        S, M, G = (int(st[k][l]) for k in ("scap", "mcap", "gcap"))
+        fill = min(1.0, 0.9 * U / (S + M + G))
+        nS, nM, nG = (max(1, int(fill * n)) for n in (S, M, G))
+        keys = rng.permutation(U)[:nS + nM + nG]
+        ks, km, kg = keys[:nS], keys[nS:nS + nM], keys[nS + nM:]
+        st["skey"][l, :nS] = torch.from_numpy(ks)
+        st["sref"][l, :nS] = torch.from_numpy(rng.random(nS) < 0.5)
+        st["seqctr"][l] = S + 10
+        st["sseq"][l, :nS] = torch.from_numpy(
+            (S + 10 - rng.integers(1, S + 10, nS)).astype(np.int32))
+        st["spos"][l] = int(rng.integers(S))
+        st["mkey"][l, :nM] = torch.from_numpy(km)
+        density = (0.5, 0.99)[l % 2]
+        st["mref"][l, :nM] = torch.from_numpy(rng.random(nM) < density)
+        st["hand"][l] = int(rng.integers(M))
+        st["gkey"][l, :nG] = torch.from_numpy(kg)
+        st["gpos"][l] = int(rng.integers(G))
+        for ks_, code in ((ks, peng.W_SMALL), (km, peng.W_MAIN),
+                          (kg, peng.W_GHOST)):
+            idx = torch.from_numpy(ks_.astype(np.int64))
+            st["loc_w"][l, idx] = code
+            st["loc_s"][l, idx] = torch.arange(len(ks_), dtype=torch.int32)
+    return {k: v.to(device) for k, v in st.items()}
+
+
+def _skewed_trace(T, U, seed):
+    """Half uniform keys over [0, U), half from its first tenth."""
+    rng = np.random.default_rng(seed)
+    tr = np.concatenate([rng.integers(0, U, T // 2),
+                         rng.integers(0, max(2, U // 10), T - T // 2)])
+    rng.shuffle(tr)
+    return tr.astype(np.int32)
+
+
+def _lane_configs(caps, **kw):
+    """Per capacity: two windows, a skip limit, and a clock2q lane."""
+    cfgs = []
+    for c in caps:
+        cfgs += [peng.SweepConfig(c, window_frac=0.1, **kw),
+                 peng.SweepConfig(c, window_frac=1.0, skip_limit=3, **kw),
+                 peng.get_engine("clock2q").config(c, **kw)]
+    return cfgs
+
+
+TIER_GRIDS = {  # tier: (lane configs, universe); natural sizes in that tier
+    0: (_lane_configs([64, 1500], small_frac=0.1), 4096),
+    1: (_lane_configs([2000, 20000], small_frac=0.1), 65536),
+    2: (_lane_configs([50000], small_frac=0.1), 131072),
+    3: (_lane_configs([90000], small_frac=0.1), 262144),
+}
+
+
+def _kernel_and_plain(state, trace, out="hits"):
+    a = {k: v.clone() for k, v in state.items()}
+    b = {k: v.clone() for k, v in state.items()}
+    before = ops.launch_count
+    got = ops.cache_sim(a, trace, out)
+    torch.cuda.synchronize()
+    assert ops.launch_count == before + 1
+    want = cache_sim_plain(b, trace, out)
+    return got, want, a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", sorted(TIER_GRIDS))
+def test_cache_sim_each_tier_equals_plain(tier, cuda_device):
+    cfgs, U = TIER_GRIDS[tier]
+    st = _filled_state(cfgs, U, seed=tier, device=cuda_device)
+    trace = torch.from_numpy(_skewed_trace(2048, U, seed=tier)).to(
+        cuda_device)
+    plan = ops.plan_view(ops.host_view(st, trace))
+    assert max(plan.tiers) == tier
+    got, want, a, b = _kernel_and_plain(st, trace)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+def test_cache_sim_mixed_tiers_in_one_launch(cuda_device):
+    """One launch over lanes of all four tiers, with skip-limit and
+    clock2q lanes, per-lane trace rows with padding keys."""
+    U = 20000
+    cfgs = _lane_configs([100, 25000, 40000, 90000], small_frac=0.1)
+    st = _filled_state(cfgs, U, seed=7, device=cuda_device)
+    rows = np.stack([_skewed_trace(1500, U, seed=10 + i)
+                     for i in range(len(cfgs))])
+    rows[:, ::97] = -1
+    trace = torch.from_numpy(rows).to(cuda_device)
+    plan = ops.plan_view(ops.host_view(st, trace))
+    assert sorted(set(plan.tiers)) == [0, 1, 2, 3]
+    for out in ("hits", "counts"):
+        got, want, a, b = _kernel_and_plain(st, trace, out)
+        assert torch.equal(got, want)
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", sorted(TIER_GRIDS))
+def test_cache_sim_plain_to_kernel_handover_in_each_tier(tier, cuda_device):
+    """The plain version replays the first chunk, the kernel the second:
+    the same hits and state as the kernel over both."""
+    cfgs, U = TIER_GRIDS[tier]
+    st = _filled_state(cfgs, U, seed=20 + tier, device=cuda_device)
+    trace = torch.from_numpy(_skewed_trace(1024, U, seed=30 + tier)).to(
+        cuda_device)
+    whole = {k: v.clone() for k, v in st.items()}
+    h_whole = ops.cache_sim(whole, trace, "hits")
+    part = {k: v.clone() for k, v in st.items()}
+    h1 = cache_sim_plain(part, trace[:600].contiguous(), "hits")
+    h2 = ops.cache_sim(part, trace[600:].contiguous(), "hits")
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([h1, h2], dim=1), h_whole)
+    assert all(torch.equal(part[k], whole[k]) for k in part)
+
+
 # -- attention kernels -------------------------------------------------------
 
 FLASH_SHAPES = [  # B, S, H, Hkv, hd, causal: tests/test_kernels.py, granite,
@@ -180,9 +306,12 @@ SCAN_SHAPES = [  # B, S, din, N: tests/test_kernels.py, falcon-mamba, edges
     (2, 64, 128, 16),
     (1, 100, 96, 8),
     (2, 32, 64, 4),
+    (1, 70, 100, 3),      # one thread a channel, N not a power of two
     (2, 17, 8192, 16),
     (1, 70, 256, 33),
     (2, 100, 300, 64),
+    (1, 130, 200, 12),    # N not a power of two, din and S off the tiles
+    (2, 65, 100, 64),
 ]
 
 
