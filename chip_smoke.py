@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's three paths on one CUDA card, through the hand-written
+Drives the port's four paths on one CUDA card, through the hand-written
 Hopper kernels, all built from the sources under
 ``src/repro_torch/kernels/*/csrc/`` at first use (one ``nvcc`` each,
 started together):
@@ -10,6 +10,13 @@ started together):
   ``cache_sim`` kernel, as batched sweeps over the SUITE traces and as
   chunked replays, held with tolerance 0 against the kernel's plain
   PyTorch version and the pure-Python Clock2Q+ oracle;
+* the paper's policy comparison: every SUITE trace through one mixed
+  sweep of Clock2Q+, Clock2Q, S3-FIFO (2- and 1-bit), FIFO, Clock and
+  LRU lanes, each step family one launch (``cache_sim``, ``s3fifo_sim``,
+  ``simple_sim``'s FIFO, Clock and LRU entry points), with the new
+  kernels held at tolerance 0 against their plain versions and, at one
+  capacity a trace, against the port's pure-Python policy zoo; it prints
+  the miss ratios, Eq. 1 against Clock and the headline gap to S3-FIFO;
 * the paged serving path: ``granite-3-8b`` at full width and depth
   (random bf16 weights from a seeded generator) behind the
   continuous-batching ``ServingEngine``, prefill through the
@@ -33,8 +40,9 @@ line.  Any mismatch or error exits non-zero before the result line, and
 so does a machine without CUDA.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --previous DIR   # the four kernels of the
-                                           # checkout DIR beside these
+    python3 chip_smoke.py --previous DIR   # the four TPU-ported kernels
+                                           # of the checkout DIR beside
+                                           # these
 """
 
 from __future__ import annotations
@@ -1356,13 +1364,15 @@ def scan_previous(dev, tree: str):
 
 
 class LaunchTimes:
-    """CUDA-event times of every ``cache_sim`` kernel launch between
-    ``start`` and ``stop``, summed by the kind of call set in ``kind``: it
-    wraps the wrapper's ``ops.launch`` (the C call alone, after the
-    wrapper's checks)."""
+    """CUDA-event times of every kernel launch of a wrapper module
+    (``cache_sim``'s by default) between ``start`` and ``stop``, summed
+    by the kind of call set in ``kind``: it wraps the wrapper's
+    ``ops.launch`` (the C call alone, after the wrapper's checks).  With
+    ``label``, a function of the launch's arguments, the kind is
+    ``(kind, label(args))``."""
 
-    def __init__(self, ops):
-        self.ops, self.kind, self.events = ops, None, []
+    def __init__(self, ops, label=None):
+        self.ops, self.kind, self.events, self.label = ops, None, [], label
 
     def start(self):
         launch = self.inner = self.ops.launch
@@ -1373,7 +1383,9 @@ class LaunchTimes:
             a.record()
             out = launch(*args, **kw)
             b.record()
-            self.events.append((self.kind, a, b))
+            kind = self.kind if self.label is None \
+                else (self.kind, self.label(args))
+            self.events.append((kind, a, b))
             return out
         self.ops.launch = timed
 
@@ -1402,6 +1414,298 @@ def suite_traces(traces):
     return out
 
 
+# -- the policy-comparison path: S3-FIFO, FIFO, Clock and LRU lanes ------------
+
+# The mixed sweep of every SUITE trace: (label, engine, knobs) x the 8
+# SWEEP_FRACS capacities, 56 lanes (the paper's Fig. 8/9 comparison).
+COMPARE = (("clock2q+", "clock2q+", {}), ("clock2q", "clock2q", {}),
+           ("s3fifo", "s3fifo", {}), ("s3fifo-1bit", "s3fifo", dict(bits=1)),
+           ("fifo", "fifo", {}), ("clock", "clock", {}), ("lru", "lru", {}))
+POLICY_FAMILIES = ("s3fifo", "fifo", "clock", "lru")  # the two new kernels'
+HEADLINE_FRACS = (0.05, 0.1)  # benchmarks/paper_figs.py::_headline_gap
+VS_PLAIN_TRACES = ("w01-skewed", "w04-scans", "w02-balanced/meta",
+                   "w08-random/meta")
+# Bytes a lane's state holds per logical slot of each ring and per key of
+# its location table, by family (the rings and table a kernel touches).
+STATE_BYTES = {"s3fifo": dict(ring=(8, 8, 4), table=1 + 4),  # S, M, G
+               "fifo": dict(ring=(4,), table=1),
+               "clock": dict(ring=(4 + 1,), table=4),
+               "lru": dict(ring=(4 + 4,), table=4)}
+CURSORS = {"s3fifo": (4, 6), "fifo": (1, 1), "clock": (1, 1),
+           "lru": (1, 1)}  # per lane: cursors read and written, sizes read
+
+
+def policy_kernels():
+    """The replay kernel of each new family: (wrapper module, kernel
+    wrapper, plain version), the plain one ``fn(state, trace, out)``."""
+    import functools
+
+    from repro_torch.kernels.s3fifo_sim import ops as s3ops
+    from repro_torch.kernels.s3fifo_sim.ref import s3fifo_sim_plain
+    from repro_torch.kernels.simple_sim import ops as smops
+    from repro_torch.kernels.simple_sim.ref import simple_sim_plain
+
+    out = {"s3fifo": (s3ops, s3ops.s3fifo_sim, s3fifo_sim_plain)}
+    for fam in ("fifo", "clock", "lru"):
+        out[fam] = (smops, getattr(smops, f"{fam}_sim"),
+                    functools.partial(simple_sim_plain, fam))
+    return out
+
+
+def policy_bound(family: str, cfgs, unique: int, T: int):
+    """The least time of one launch of ``family`` over lanes ``cfgs``: the
+    trace read once; per lane the table entries of the ``unique`` keys and
+    each ring at its logical size, read and written; cursors read and
+    written, sizes read; the counts written (bytes, at the card's memory
+    rate); or STEP_OPS integer operations a request a lane (at the 32-bit
+    rate), whichever is longer.  Returns (bytes, bytes_ms, ops_ms)."""
+    from repro_torch.core.engine import get_engine
+
+    b = STATE_BYTES[family]
+    touched = sum(unique * b["table"] + sum(
+        n * w for n, w in zip(get_engine(family).sizes_fn(c), b["ring"]))
+        for c in cfgs)
+    rw, ro = CURSORS[family]
+    L = len(cfgs)
+    moved = T * 4 + 2 * touched + L * 4 * (2 * rw + ro) + L * 8
+    return (moved, 1e3 * moved / HBM_BYTES_PER_S,
+            1e3 * T * L * STEP_OPS / SCALAR_OPS_PER_S)
+
+
+def engines_vs_plain(dev, named):
+    """Each new family's kernel against its plain version at tolerance 0,
+    on every hit and state tensor: 8,192-request prefixes of four SUITE
+    traces as per-lane rows of one padded grid a family (capacities at
+    1/10/50 % of each prefix's footprint; S3-FIFO with bits 2 and 1 and
+    skip limits 2 and 16), a plain-to-kernel hand-over at the half, and
+    counts mode against hits mode."""
+    from repro_torch.core.engine import get_engine, grid_init
+    from repro_torch.tuning.sweep import relabel
+
+    kernels = policy_kernels()
+    cfgs = {f: [] for f in kernels}
+    rows = {f: [] for f in kernels}
+    for name in VS_PLAIN_TRACES:
+        d, _ = relabel(named[name][:PREFIX])
+        fp = len(np.unique(d))
+        caps = [max(8, int(fp * f)) for f in (0.01, 0.1, 0.5)]
+        for fam in kernels:
+            eng = get_engine(fam)
+            lanes = [eng.config(c) for c in caps]
+            if fam == "s3fifo":
+                lanes += [eng.config(c, bits=1) for c in caps]
+                lanes += [eng.config(caps[1], skip_limit=k) for k in (2, 16)]
+            cfgs[fam] += lanes
+            rows[fam] += [d] * len(lanes)
+    universe = pow2(max(int(r.max()) + 1 for r in rows["s3fifo"]))
+    half = PREFIX // 2
+    rec = dict(phase="engines_vs_plain", requests=PREFIX,
+               traces=list(VS_PLAIN_TRACES), universe=universe, tolerance=0,
+               families={})
+    t_phase = time.perf_counter()
+    for fam, (mod, kernel, plain) in kernels.items():
+        per_lane = torch.as_tensor(np.stack(rows[fam]), device=dev)
+        init = grid_init(cfgs[fam], universe, device=dev)
+        st_plain = clone(init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h_a = plain(st_plain, per_lane[:, :half].contiguous())
+        st_mid = clone(st_plain)
+        h_b = plain(st_plain, per_lane[:, half:].contiguous())
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        h_plain = torch.cat([h_a, h_b], dim=1)
+
+        launches0 = mod.launch_count
+        st_k = clone(init)
+        kernel_ms = cuda_ms(lambda: kernel(st_k, per_lane, "hits"))[0]
+        st_k = clone(init)
+        h_k = kernel(st_k, per_lane, "hits")
+        err = max(int((h_k.long() - h_plain.long()).abs().max()),
+                  state_err(st_k, st_plain))
+        require(err == 0, f"{fam}: kernel != plain on the per-lane prefix "
+                          f"(err {err})")
+        h_rt = kernel(st_mid, per_lane[:, half:].contiguous(), "hits")
+        rt_err = max(int((h_rt.long() - h_k[:, half:].long()).abs().max()),
+                     state_err(st_mid, st_k))
+        require(rt_err == 0, f"{fam}: plain->kernel state hand-over differs "
+                             f"({rt_err})")
+        st_c = clone(init)
+        counts = kernel(st_c, per_lane, "counts")
+        require(torch.equal(counts, h_k.sum(1)) and state_err(st_c, st_k) == 0,
+                f"{fam}: counts mode != hits mode")
+        widths = {k: int(v.shape[1]) for k, v in init.items() if v.dim() == 2}
+        rec["families"][fam] = dict(
+            lanes=len(cfgs[fam]), widths=widths,
+            bits1_lanes=sum(c.bits == 1 for c in cfgs[fam]),
+            skip_limit_lanes=sum(c.skip_limit > 0 for c in cfgs[fam]),
+            max_abs_err=max(err, rt_err), hits=int(h_k.sum()),
+            kernel_ms=kernel_ms, plain_ms=plain_ms,
+            compare_launches=mod.launch_count - launches0)
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def _zoo_kwargs(cfg) -> dict:
+    """The zoo constructor's knobs for an engine config (skip_limit 0 =
+    unlimited = None in the zoo)."""
+    if cfg.policy != "s3fifo":
+        return {}
+    return dict(small_frac=cfg.small_frac, ghost_frac=cfg.ghost_frac,
+                bits=cfg.bits, skip_limit=cfg.skip_limit or None)
+
+
+def compare_path(dev, all_traces):
+    """The paper's policy comparison on the card: for each SUITE trace one
+    mixed ``sweep_hits`` over COMPARE x SWEEP_FRACS (56 lanes: one launch
+    a step family), each new family's lane at ``suite_capacity`` held
+    request for request against the port's zoo, Eq. 1 against Clock, and
+    the headline gap over the metadata traces.  Returns the phase's
+    record and each kernel's launches and per-launch CUDA-event times."""
+    from repro_torch.core import make_policy, traces
+    from repro_torch.core.engine import get_engine, grid_hit_arrays, grid_init
+    from repro_torch.kernels.cache_sim import ops as cops
+    from repro_torch.kernels.s3fifo_sim import ops as s3ops
+    from repro_torch.kernels.simple_sim import ops as smops
+    from repro_torch.tuning.sweep import relabel, sweep_hits
+
+    t_phase = time.perf_counter()
+    timers = dict(cache_sim=LaunchTimes(cops), s3fifo_sim=LaunchTimes(s3ops),
+                  simple_sim=LaunchTimes(smops, label=lambda a: a[1]))
+    mods = dict(cache_sim=cops, s3fifo_sim=s3ops, simple_sim=smops)
+    for name, mod in mods.items():
+        mod.launch_count = 0
+        timers[name].start()
+    labels = [c[0] for c in COMPARE]
+    per_trace, headline = [], []
+    try:
+        for name, tr in all_traces:
+            fp = traces.footprint(tr)
+            caps = [max(8, int(fp * f)) for f in SWEEP_FRACS]
+            grid = [get_engine(p).config(c, **kw) for _, p, kw in COMPARE
+                    for c in caps]
+            for t in timers.values():
+                t.kind = (name, "sweep")
+            t0 = time.perf_counter()
+            hits = sweep_hits(tr, grid, device=dev)
+            sweep_s = time.perf_counter() - t0
+            # misses / requests, as the zoo's SimResult.miss_ratio: the
+            # same float as the reference's for the same hits
+            mr = ((len(tr) - hits) / len(tr)).reshape(len(COMPARE), len(caps))
+            require(np.isfinite(mr).all() and ((mr >= 0) & (mr <= 1)).all(),
+                    f"{name}: bad miss ratios")
+            mrs = {lab: [float(x) for x in mr[i]]
+                   for i, lab in enumerate(labels)}
+            base = mr[labels.index("clock")]
+            eq1 = {lab: [float(x) for x in (base - mr[i]) / np.maximum(
+                       base, 1e-12)]
+                   for i, lab in enumerate(labels) if lab != "clock"}
+            if name.endswith("/meta"):
+                for f in HEADLINE_FRACS:
+                    i = SWEEP_FRACS.index(f)
+                    require(caps[i] == max(10, int(f * fp)),
+                            "headline capacity differs from the benchmark's")
+                    s3, c2 = mrs["s3fifo"][i], mrs["clock2q+"][i]
+                    if s3 > 0:
+                        headline.append(((s3 - c2) / s3, name, f, caps[i]))
+
+            # each new family at suite_capacity, request for request
+            d, u = relabel(tr)
+            cap = traces.suite_capacity(d)
+            keys = d.tolist()
+            t0 = time.perf_counter()
+            for t in timers.values():
+                t.kind = (name, "oracle_lane")
+            for fam in POLICY_FAMILIES:
+                cfg = get_engine(fam).config(cap)
+                h = grid_hit_arrays(fam, grid_init([cfg], pow2(u), device=dev),
+                                    d)[0].cpu().numpy()
+                pol = make_policy(fam, cap, **_zoo_kwargs(cfg))
+                oracle = np.fromiter((pol.access(k) for k in keys), bool,
+                                     count=len(keys))
+                require(np.array_equal(h, oracle),
+                        f"{name}: {fam} lane at {cap} != the zoo "
+                        f"({int((h != oracle).sum())} requests differ)")
+            per_trace.append(dict(
+                trace=name, requests=len(tr), unique=fp, lanes=len(grid),
+                capacities=caps, miss_ratios=mrs, improvement_vs_clock=eq1,
+                sweep_ms=1e3 * sweep_s, suite_capacity=cap,
+                oracle_families=list(POLICY_FAMILIES),
+                oracle_s=time.perf_counter() - t0, oracle_equal=True))
+    finally:
+        for t in timers.values():
+            t.stop()
+    launches = {name: mod.launch_count for name, mod in mods.items()}
+    for name, n in launches.items():
+        require(n > 0, f"the comparison path launched no {name} kernel")
+    times = {name: t.by_kind() for name, t in timers.items()}
+    for name, n in launches.items():
+        require(sum(k["launches"] for k in times[name].values()) == n,
+                f"timed {name} launches != {n}")
+    gap = max(headline)
+    kernel_ms = {name: sum(k["ms"] for k in t.values())
+                 for name, t in times.items()}
+    rec = dict(phase="compare_path", traces=per_trace, policies=labels,
+               fracs=list(SWEEP_FRACS), launches=launches,
+               kernel_ms=kernel_ms,
+               kernel_ms_by_family={
+                   fam: sum(v["ms"] for k, v in times["simple_sim"].items()
+                            if k[1] == fam) for fam in ("fifo", "clock",
+                                                        "lru")},
+               headline_gap=dict(gap=gap[0], trace=gap[1], frac=gap[2],
+                                 capacity=gap[3], fracs=list(HEADLINE_FRACS),
+                                 of="max (MR_s3fifo - MR_clock2q+) / "
+                                    "MR_s3fifo over the 8 metadata traces"),
+               seconds=time.perf_counter() - t_phase)
+    return rec, times
+
+
+def policy_kernel_row(name, times, cmp, evp, families, trace, all_traces):
+    """The ``kernels`` line's entry of the new kernel ``name`` (serving
+    ``families``): ``ms`` the sum of its launches at ``trace``'s mixed
+    sweep (CUDA events), its bound there, the plain version's time at
+    ``engines_vs_plain``'s grids."""
+    from repro_torch.core import traces
+    from repro_torch.core.engine import get_engine
+
+    tr = dict(all_traces)[trace]
+    fp = traces.footprint(tr)
+    caps = [max(8, int(fp * f)) for f in SWEEP_FRACS]
+    ms_by_family, moved, bytes_ms, ops_ms, lanes = {}, 0, 0.0, 0.0, 0
+    for fam in families:
+        cfgs = [get_engine(p).config(c, **kw) for _, p, kw in COMPARE
+                for c in caps if p == fam]
+        b, bms, oms = policy_bound(fam, cfgs, fp, len(tr))
+        moved, bytes_ms, ops_ms = moved + b, bytes_ms + bms, ops_ms + oms
+        lanes += len(cfgs)
+        key = (trace, "sweep") if name == "s3fifo_sim" \
+            else ((trace, "sweep"), fam)
+        ms_by_family[fam] = times[name][key]["ms"]
+    fams = evp["families"]
+    return dict(
+        name=name, route="cuda",
+        source=f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+        replaces=("src/repro/core/engine/s3fifo.py:64 step (jit lax.scan, "
+                  "vmapped over lanes)" if name == "s3fifo_sim" else
+                  "src/repro/core/engine/simple.py:43 fifo_step, :70 "
+                  "clock_step, :113 lru_step (jit lax.scan, vmapped over "
+                  "lanes)"),
+        launches=cmp["launches"][name],
+        max_abs_err=max(fams[f]["max_abs_err"] for f in families),
+        ms=sum(ms_by_family.values()), ms_by_family=ms_by_family,
+        plain_ms=sum(fams[f]["plain_ms"] for f in families),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None,
+        ms_shape=f"{trace} mixed sweep: {lanes} lanes x {len(tr)} requests"
+                 + ("" if name == "s3fifo_sim" else
+                    f", one launch each of {', '.join(families)}"),
+        bytes_moved=moved,
+        plain_shape=", ".join(f"{f}: {fams[f]['lanes']} lanes" for f in
+                              families) + f" x {PREFIX} requests",
+        kernel_ms_at_plain_shape=sum(fams[f]["kernel_ms"] for f in families))
+
+
 def main() -> int:
     """Run every phase (or, with ``--previous``, only ``attn_previous``,
     ``scan_previous`` and ``cache_sim_previous``); returns the exit code."""
@@ -1426,6 +1730,8 @@ def main() -> int:
     from repro_torch.kernels.mamba_scan import ops as sops
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.cache_sim.ref import cache_sim_plain
+    from repro_torch.kernels.s3fifo_sim import build as s3build
+    from repro_torch.kernels.simple_sim import build as smbuild
     from repro_torch.tuning.sweep import make_grid, relabel, sweep_hits
 
     dev = torch.device("cuda", 0)
@@ -1457,7 +1763,9 @@ def main() -> int:
     kbuild.build_many([("cache_sim", build.SOURCE),
                        ("flash_attention", fops.SOURCE),
                        ("paged_attention", pops.SOURCE),
-                       ("mamba_scan", sops.SOURCE)])
+                       ("mamba_scan", sops.SOURCE),
+                       ("s3fifo_sim", s3build.SOURCE),
+                       ("simple_sim", smbuild.SOURCE)])
     build_s = time.perf_counter() - t0
     build.load()
     emit(dict(phase="device", device=kind, count=torch.cuda.device_count(),
@@ -1465,7 +1773,7 @@ def main() -> int:
               build_s=build_s, builds={
                   k: kbuild.info(k) for k in
                   ("cache_sim", "flash_attention", "paged_attention",
-                   "mamba_scan")}))
+                   "mamba_scan", "s3fifo_sim", "simple_sim")}))
 
     t0 = time.perf_counter()
     all_traces = suite_traces(traces)
@@ -1666,6 +1974,12 @@ def main() -> int:
     kt, kt_meta = sweeps["w01-skewed"], sweeps["w01-skewed/meta"]
     emit(tier_time(dev, named))
 
+    # -- the policy-comparison path: S3-FIFO, FIFO, Clock, LRU on the card -----
+    evp = engines_vs_plain(dev, named)
+    emit(evp)
+    cmp, cmp_times = compare_path(dev, all_traces)
+    emit(cmp)
+
     # -- the serving path: kernels, full model, consistency, kernel times ------
     check = attn_kernels_vs_plain(dev)
     emit(check)
@@ -1703,7 +2017,10 @@ def main() -> int:
         name="cache_sim", route="cuda",
         source="src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu",
         replaces="src/repro/kernels/cache_sim/cache_sim.py:46",
-        launches=launches, max_abs_err=max_abs_err, ms=kt["ms"],
+        launches=launches + cmp["launches"]["cache_sim"],
+        launches_by_path=dict(main_path=launches,
+                              compare_path=cmp["launches"]["cache_sim"]),
+        max_abs_err=max_abs_err, ms=kt["ms"],
         plain_ms=plain_ms, bound_ms=kt["bound_ms"], bound_by=kt["bound_by"],
         library_ms=None,
         ms_shape=f"w01-skewed sweep: {kt['lanes']} lanes x "
@@ -1755,7 +2072,12 @@ def main() -> int:
              bound_by=st["bound_by"], library_ms=None, ms_shape=st["shape"],
              plain_shape=scan_check["plain_shape"],
              kernel_ms_at_plain_shape=scan_check[
-                 "kernel_ms_at_plain_shape"])]})
+                 "kernel_ms_at_plain_shape"]),
+        policy_kernel_row("s3fifo_sim", cmp_times, cmp, evp, ("s3fifo",),
+                          "w01-skewed/meta", all_traces),
+        policy_kernel_row("simple_sim", cmp_times, cmp, evp,
+                          ("fifo", "clock", "lru"), "w01-skewed/meta",
+                          all_traces)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

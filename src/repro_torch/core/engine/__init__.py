@@ -1,34 +1,42 @@
-"""The capacity-masked policy core: the Clock2Q+ step behind a
-``PolicyEngine`` registry, and the replay drivers over it.
+"""The capacity-masked policy core: one masked step per policy family
+behind a ``PolicyEngine`` registry, and the replay drivers over it.
 
-The port of ``repro/core/engine/__init__.py``.  Registered here:
-``clock2q+`` and ``clock2q`` (the same step with 2Q sizing and a window
-covering the whole Small FIFO).  Every state carries a leading lane axis;
-a single configuration is one lane.
+The port of ``repro/core/engine/__init__.py``.  Registered here, as in
+the reference: ``clock2q+`` and ``clock2q`` (the same step with 2Q
+sizing and a window covering the whole Small FIFO), ``s3fifo``,
+``fifo``, ``clock`` and ``lru``.  Every state carries a leading lane
+axis; a single configuration is one lane.
 
 Each engine names its plain step (``step_fn``) and the wrapper of its
 kernel (``replay_fn``, which advances a state over a whole trace).  The
 drivers (``replay``, ``replay_chunked``, ``grid_hit_counts``,
-``grid_hit_arrays``) go through ``replay_fn``: on CUDA tensors that is
-the Hopper ``cache_sim`` kernel, on CPU tensors its plain version.
-States are advanced IN PLACE (the location tables dominate their size).
+``grid_hit_arrays``) go through ``replay_fn``: on CUDA tensors that is a
+Hopper kernel (``cache_sim`` for the Clock2Q+ family, ``s3fifo_sim``,
+and ``simple_sim``'s FIFO, Clock and LRU entry points), on CPU tensors
+its plain version.  States are advanced IN PLACE (the location tables
+dominate their size).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+import functools
+from typing import (
+    Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.engine import clock2qplus
+from repro_torch.core.engine import clock2qplus, s3fifo, simple
 from repro_torch.core.engine.layout import (  # noqa: F401  (package API)
     EMPTY, W_GHOST, W_MAIN, W_NONE, W_SMALL, SweepConfig, c2qp_sizes,
     seg, sq_sizes,
 )
-from repro_torch.kernels.cache_sim.ops import cache_sim, check_state
+from repro_torch.kernels.cache_sim import ops as cache_sim_ops
+from repro_torch.kernels.s3fifo_sim import ops as s3fifo_ops
+from repro_torch.kernels.simple_sim import ops as simple_ops
 
 State = Dict[str, torch.Tensor]
 
@@ -101,7 +109,7 @@ register_engine(PolicyEngine(
     "clock2q+",
     knobs=("window_frac", "small_frac", "ghost_frac", "skip_limit"),
     sizes_fn=clock2qplus.sizes, init_fn=clock2qplus.init_lanes,
-    step_fn=clock2qplus.step, replay_fn=cache_sim))
+    step_fn=clock2qplus.step, replay_fn=cache_sim_ops.cache_sim))
 # Clock2Q == Clock2Q+ with 2Q sizing and the window covering the whole
 # Small FIFO (the ref bit is never set while resident there, §3.2) —
 # the same masked step, preset-sized.
@@ -109,17 +117,31 @@ register_engine(PolicyEngine(
     "clock2q",
     knobs=("window_frac", "small_frac", "ghost_frac", "skip_limit"),
     sizes_fn=clock2qplus.sizes, init_fn=clock2qplus.init_lanes,
-    step_fn=clock2qplus.step, replay_fn=cache_sim,
+    step_fn=clock2qplus.step, replay_fn=cache_sim_ops.cache_sim,
     preset=dict(small_frac=0.25, window_frac=10.0)))
+register_engine(PolicyEngine(
+    "s3fifo",
+    knobs=("small_frac", "ghost_frac", "skip_limit", "bits"),
+    sizes_fn=s3fifo.sizes, init_fn=s3fifo.init_lanes, step_fn=s3fifo.step,
+    replay_fn=s3fifo_ops.s3fifo_sim, preset=dict(ghost_frac=1.0)))
+register_engine(PolicyEngine(
+    "fifo", knobs=(), sizes_fn=simple.sizes, init_fn=simple.fifo_init_lanes,
+    step_fn=simple.fifo_step, replay_fn=simple_ops.fifo_sim))
+register_engine(PolicyEngine(
+    "clock", knobs=(), sizes_fn=simple.sizes,
+    init_fn=simple.clock_init_lanes, step_fn=simple.clock_step,
+    replay_fn=simple_ops.clock_sim))
+register_engine(PolicyEngine(
+    "lru", knobs=(), sizes_fn=simple.sizes, init_fn=simple.lru_init_lanes,
+    step_fn=simple.lru_step, replay_fn=simple_ops.lru_sim))
 
 
 # -- carrying a JAX engine state across ----------------------------------------
 
-def _check_state_values(a: Mapping[str, np.ndarray], U: int) -> None:
-    """The kernel indexes rings and tables with these values and checks
-    none of them per request: a cursor, slot or key out of range would
-    write past its lane's row."""
-    rings = dict(scap="skey", mcap="mkey", gcap="gkey")
+def _check_rings(a: Mapping[str, np.ndarray], U: int,
+                 rings: Mapping[str, str]) -> None:
+    """Each logical size within its ring's width, each ring key in
+    [EMPTY, U)."""
     for cap, ring in rings.items():
         c, keys = a[cap], a[ring]
         if c.min() < 1 or c.max() > keys.shape[1]:
@@ -127,17 +149,30 @@ def _check_state_values(a: Mapping[str, np.ndarray], U: int) -> None:
                              f"{keys.shape[1]}]")
         if ((keys < EMPTY) | (keys >= U)).any():
             raise ValueError(f"{ring} holds a key outside [{EMPTY}, {U})")
-    for cur, cap in (("spos", "scap"), ("hand", "mcap"), ("gpos", "gcap")):
-        if ((a[cur] < 0) | (a[cur] >= a[cap])).any():
-            raise ValueError(f"{cur} {a[cur].tolist()} outside [0, {cap})")
-    for k in ("window", "skip_limit"):
+
+
+def _check_cursors(a: Mapping[str, np.ndarray],
+                   cursors: Mapping[str, str], slack: int = 0) -> None:
+    for cur, cap in cursors.items():
+        if ((a[cur] < 0) | (a[cur] >= a[cap] + slack)).any():
+            raise ValueError(f"{cur} {a[cur].tolist()} outside [0, {cap}"
+                             f"{' + %d' % slack if slack else ''})")
+
+
+def _check_nonnegative(a: Mapping[str, np.ndarray], names) -> None:
+    for k in names:
         if (a[k] < 0).any():
             raise ValueError(f"{k} {a[k].tolist()} is negative")
+
+
+def _check_segments(a: Mapping[str, np.ndarray],
+                    caps: Mapping[int, str]) -> None:
+    """``loc_w`` codes within W_NONE..W_GHOST, and ``loc_s`` of every key
+    a segment holds within the logical ring of that segment."""
     where, slot = a["loc_w"], a["loc_s"]
     if ((where < W_NONE) | (where > W_GHOST)).any():
         raise ValueError("loc_w holds a code outside W_NONE..W_GHOST")
-    for code, cap in ((W_SMALL, "scap"), (W_MAIN, "mcap"),
-                      (W_GHOST, "gcap")):
+    for code, cap in caps.items():
         lanes, ids = np.nonzero(where == code)
         s = slot[lanes, ids]
         if ((s < 0) | (s >= a[cap][lanes])).any():
@@ -145,23 +180,105 @@ def _check_state_values(a: Mapping[str, np.ndarray], U: int) -> None:
                              f"its {cap}")
 
 
+def _check_clock2qplus(a: Mapping[str, np.ndarray], U: int) -> None:
+    _check_rings(a, U, dict(scap="skey", mcap="mkey", gcap="gkey"))
+    _check_cursors(a, dict(spos="scap", hand="mcap", gpos="gcap"))
+    _check_nonnegative(a, ("window", "skip_limit"))
+    _check_segments(a, {W_SMALL: "scap", W_MAIN: "mcap", W_GHOST: "gcap"})
+
+
+def _check_s3fifo(a: Mapping[str, np.ndarray], U: int) -> None:
+    _check_rings(a, U, dict(scap="skey", mcap="mkey", gcap="gkey"))
+    _check_cursors(a, dict(spos="scap", mhead="mcap", gpos="gcap"))
+    _check_cursors(a, dict(mcount="mcap"), slack=1)
+    _check_nonnegative(a, ("skip_limit", "promote_at"))
+    _check_segments(a, {W_SMALL: "scap", W_MAIN: "mcap", W_GHOST: "gcap"})
+    # the kernel's reinsertion walk equals the reference's closed form for
+    # freqs in [0, freq_cap], and freq_cap is the ``bits`` knob's 1 or 3
+    if ((a["freq_cap"] < 1) | (a["freq_cap"] > 3)).any():
+        raise ValueError(f"freq_cap {a['freq_cap'].tolist()} outside [1, 3]")
+    for k in ("sfreq", "mfreq"):
+        if ((a[k] < 0) | (a[k] > a["freq_cap"][:, None])).any():
+            raise ValueError(f"{k} holds a freq outside [0, freq_cap]")
+
+
+def _check_slot_table(a: Mapping[str, np.ndarray]) -> None:
+    """``loc`` (Clock, LRU) holds EMPTY or a slot of the logical ring."""
+    if ((a["loc"] < EMPTY) | (a["loc"] >= a["cap"][:, None])).any():
+        raise ValueError("loc names a slot outside the ring of its cap")
+
+
+def _check_fifo(a: Mapping[str, np.ndarray], U: int) -> None:
+    _check_rings(a, U, dict(cap="keys"))
+    _check_cursors(a, dict(pos="cap"))
+
+
+def _check_clock(a: Mapping[str, np.ndarray], U: int) -> None:
+    _check_rings(a, U, dict(cap="keys"))
+    _check_cursors(a, dict(hand="cap"))
+    _check_slot_table(a)
+
+
+def _check_lru(a: Mapping[str, np.ndarray], U: int) -> None:
+    _check_rings(a, U, dict(cap="keys"))
+    _check_nonnegative(a, ("t",))
+    _check_slot_table(a)
+
+
+class _Family(NamedTuple):
+    """A state layout: its tensors and dtypes, a per-lane scalar of it
+    (0-d in an unbatched reference state), the kernel wrapper's layout
+    check, and the check of the values the kernel indexes with."""
+    dtypes: Mapping[str, torch.dtype]
+    scalar: str
+    check_state: Callable
+    check_values: Callable
+
+
+_FAMILIES = {
+    "clock2q+": _Family(clock2qplus.STATE_DTYPES, "spos",
+                        cache_sim_ops.check_state, _check_clock2qplus),
+    "s3fifo": _Family(s3fifo.STATE_DTYPES, "spos", s3fifo_ops.check_state,
+                      _check_s3fifo),
+    **{name: _Family(simple.DTYPES[name], "cap",
+                     functools.partial(simple_ops.check_state, name), check)
+       for name, check in (("fifo", _check_fifo), ("clock", _check_clock),
+                           ("lru", _check_lru))},
+}
+
+
+def step_family(policy: str) -> Tuple[Callable, Callable]:
+    """What lanes of one launch must share: the engine's init and step
+    (``clock2q+`` and ``clock2q`` share theirs)."""
+    eng = get_engine(policy)
+    return eng.init_fn, eng.step_fn
+
+
+def state_family(keys) -> str:
+    """The layout a state's tensor names belong to: ``clock2q+`` (which
+    ``clock2q`` shares), ``s3fifo``, ``fifo``, ``clock`` or ``lru``."""
+    for name, fam in _FAMILIES.items():
+        if set(keys) == set(fam.dtypes):
+            return name
+    raise ValueError(f"state keys {sorted(keys)} are no engine's layout")
+
+
 def state_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> State:
     """A port state from a reference engine state given as numpy arrays
-    (``{k: np.asarray(v)}`` of a JAX state).  An unbatched state (scalar
-    cursors) gains a lane axis of 1; a grid state keeps its lanes.  The
-    state is held to the layout here, once: keys, dtypes, shapes, and
-    every cursor, slot and ring key within its ring or table."""
+    (``{k: np.asarray(v)}`` of a JAX state of any registered family).  An
+    unbatched state (scalar cursors) gains a lane axis of 1; a grid state
+    keeps its lanes.  The state is held to its family's layout here, once:
+    keys, dtypes, shapes, and every cursor, slot and ring key within its
+    ring or table."""
     dev = resolve_device(device)
-    if set(arrays) != set(clock2qplus.STATE_DTYPES):
-        raise ValueError(f"state keys {sorted(arrays)} are not the Clock2Q+ "
-                         "layout")
-    batched = np.ndim(arrays["spos"]) == 1
+    fam = _FAMILIES[state_family(arrays)]
+    batched = np.ndim(arrays[fam.scalar]) == 1
     # a copy: the port updates its state in place, and the arrays may be
     # read-only views of the caller's buffers
     host = {k: torch.tensor(np.asarray(v) if batched else np.asarray(v)[None])
             for k, v in arrays.items()}
-    _, widths = check_state(host)
-    _check_state_values({k: v.numpy() for k, v in host.items()}, widths["U"])
+    _, widths = fam.check_state(host)
+    fam.check_values({k: v.numpy() for k, v in host.items()}, widths["U"])
     return {k: v.to(dev) for k, v in host.items()}
 
 
@@ -169,6 +286,10 @@ def state_to_numpy(state: State) -> Dict[str, np.ndarray]:
     """The state as numpy arrays on the host, lane axis first (the layout
     of a reference grid state)."""
     return {k: v.cpu().numpy() for k, v in state.items()}
+
+
+def _device(state: State) -> torch.device:
+    return next(iter(state.values())).device
 
 
 # -- replay drivers ------------------------------------------------------------
@@ -184,7 +305,7 @@ def replay(policy: str, state: State, trace) -> Tuple[State, torch.Tensor]:
     """Replay ``trace`` through every lane of ``state`` (advanced in
     place).  ``trace`` is (T,), shared by the lanes, or (L, T).  Returns
     ``(state, hits)``, hits (L, T) bool on the state's device."""
-    tr = _as_trace(trace, state["spos"].device)
+    tr = _as_trace(trace, _device(state))
     return state, get_engine(policy).replay_fn(state, tr, "hits")
 
 
@@ -217,7 +338,7 @@ def replay_chunked(policy: str, chunks, capacity: int, universe: int,
     eng = get_engine(policy)
     st = eng.init(capacity, universe, device=device, **kw) \
         if state is None else state
-    dev = st["spos"].device
+    dev = _device(st)
     hits = 0
     n = 0
     for chunk in chunks:
@@ -233,7 +354,8 @@ def grid_init(configs: Sequence[SweepConfig], universe: int,
               device=None) -> State:
     """Lane-batched state, one lane per config: rings padded to the grid
     maxima, logical sizes as per-lane scalars.  The configs' policies
-    must share one step (clock2q+ and clock2q do)."""
+    must share one step (clock2q+ and clock2q do; ``sweep_hits``
+    partitions a mixed grid by step family)."""
     if len(configs) == 0:
         raise ValueError("empty sweep grid")
     engines = [get_engine(p) for p in sorted({c.policy for c in configs})]
@@ -241,7 +363,7 @@ def grid_init(configs: Sequence[SweepConfig], universe: int,
         raise ValueError(
             f"one grid_init call batches ONE step family, got "
             f"{[e.name for e in engines]} — partition the grid by "
-            "config.policy first")
+            "step_family(config.policy) first")
     eng = engines[0]
     sizes = np.asarray([get_engine(c.policy).sizes_fn(c) for c in configs],
                        dtype=np.int64)
@@ -254,14 +376,14 @@ def grid_hit_counts(policy: str, states: State, trace) -> torch.Tensor:
     """All lanes x the whole trace in one kernel launch; per-lane hit
     counts (L,) int64 (no lanes x T array is built).  ``states`` is
     advanced in place."""
-    tr = _as_trace(trace, states["spos"].device)
+    tr = _as_trace(trace, _device(states))
     return get_engine(policy).replay_fn(states, tr, "counts")
 
 
 def grid_hit_arrays(policy: str, states: State, trace) -> torch.Tensor:
     """Per-access hit arrays for every lane, (L, T) bool.  ``states`` is
     advanced in place."""
-    tr = _as_trace(trace, states["spos"].device)
+    tr = _as_trace(trace, _device(states))
     return get_engine(policy).replay_fn(states, tr, "hits")
 
 

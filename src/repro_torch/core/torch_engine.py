@@ -3,8 +3,9 @@
 ``replay_batch``.
 
 The state machines live in ``repro_torch.core.engine``; on CUDA every
-replay here runs the Hopper ``cache_sim`` kernel.  Keys must be int ids
-in ``[0, universe)``.
+replay here runs its family's Hopper kernel (``cache_sim``,
+``s3fifo_sim`` or ``simple_sim``).  Keys must be int ids in
+``[0, universe)``.
 """
 
 from __future__ import annotations

@@ -21,13 +21,11 @@ from typing import Dict, List, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.engine.clock2qplus import STATE_DTYPES
-from repro_torch.kernels.cache_sim.ref import cache_sim_plain
+from repro_torch.kernels import lanes
 
 # Number of kernel launches in this process.
 launch_count = 0
 
-_OUTS = ("hits", "counts")
 _RINGS = dict(skey="pS", sref="pS", sseq="pS", mkey="pM", mref="pM",
               gkey="pG", loc_w="U", loc_s="U")
 
@@ -119,64 +117,26 @@ def check_state(state: Dict[str, torch.Tensor]):
     """Hold a state to the layout the kernel takes: keys, dtypes, one
     device, contiguity and shapes.  Returns ``(L, widths)``, the lane
     count and the ring and table widths (``pS``, ``pM``, ``pG``, ``U``)."""
-    if set(state) != set(STATE_DTYPES):
-        raise ValueError(f"state keys {sorted(state)} are not the Clock2Q+ "
-                         f"layout {sorted(STATE_DTYPES)}")
-    L = state["spos"].shape[0] if state["spos"].dim() else -1
-    widths = {}
-    for name, t in state.items():
-        if t.dtype != STATE_DTYPES[name]:
-            raise TypeError(f"state[{name!r}] is {t.dtype}, "
-                            f"expected {STATE_DTYPES[name]}")
-        if t.device != state["spos"].device:
-            raise ValueError(f"state[{name!r}] on {t.device}, spos on "
-                             f"{state['spos'].device}")
-        if not t.is_contiguous():
-            raise ValueError(f"state[{name!r}] is not contiguous")
-        want = 2 if name in _RINGS else 1
-        if t.dim() != want or t.shape[0] != L:
-            raise ValueError(f"state[{name!r}] has shape {tuple(t.shape)}, "
-                             f"expected {want} dims with {L} lanes")
-        if name in _RINGS:
-            w = widths.setdefault(_RINGS[name], t.shape[1])
-            if t.shape[1] != w or w < 1:
-                raise ValueError(f"state[{name!r}] width {t.shape[1]} != {w}")
-    return L, widths
+    # imported here: the engine package imports this module to register
+    # the wrapper, so this module imports the engine only when called
+    from repro_torch.core.engine.clock2qplus import STATE_DTYPES
+
+    return lanes.check_state(state, STATE_DTYPES, _RINGS, "Clock2Q+")
 
 
 def _check(state: Dict[str, torch.Tensor], trace: torch.Tensor, out: str):
     """Validate what the kernel takes; returns (L, T, widths)."""
-    if out not in _OUTS:
-        raise ValueError(f"out must be one of {_OUTS}, got {out!r}")
     L, widths = check_state(state)
-    if trace.device != state["spos"].device:
-        raise ValueError(f"state on {state['spos'].device}, trace on "
-                         f"{trace.device}")
-    if trace.dtype != torch.int32:
-        raise TypeError(f"trace is {trace.dtype}, expected torch.int32")
-    if not trace.is_contiguous():
-        raise ValueError("trace is not contiguous")
-    if trace.dim() not in (1, 2) or (trace.dim() == 2
-                                     and trace.shape[0] != L):
-        raise ValueError(f"trace must be (T,) or ({L}, T), got "
-                         f"{tuple(trace.shape)}")
-    return L, trace.shape[-1], widths
+    T = lanes.check_trace(trace, L, state["spos"].device, out)
+    return L, T, widths
 
 
 def host_view(state, trace) -> Dict[str, np.ndarray]:
     """What the host needs of a launch, in one read from the device: the
     largest trace key, the largest ring key (-1 where there is none) and
     the per-lane logical sizes."""
-    none = torch.full((1,), -1, dtype=torch.int32, device=trace.device)
-    peaks = [trace.max().view(1) if trace.numel() else none]
-    peaks += [state[k].max().view(1) if state[k].numel() else none
-              for k in ("skey", "mkey", "gkey")]
-    flat = torch.cat(peaks + [state[k] for k in ("scap", "mcap", "gcap")])
-    host = flat.cpu().numpy().astype(np.int64)
-    L = state["scap"].shape[0]
-    return dict(trace_max=int(host[0]), ring_max=int(host[1:4].max()),
-                scap=host[4:4 + L], mcap=host[4 + L:4 + 2 * L],
-                gcap=host[4 + 2 * L:])
+    return lanes.host_view(state, trace, ("skey", "mkey", "gkey"),
+                           ("scap", "mcap", "gcap"))
 
 
 def key_range(state: Dict[str, torch.Tensor], trace: torch.Tensor) -> int:
@@ -199,17 +159,8 @@ def plan_view(view) -> LaunchPlan:
 
 def _check_values(view, widths) -> None:
     """The kernel indexes with these values: hold them to the layout."""
-    for what, peak in (("trace", view["trace_max"]),
-                       ("ring", view["ring_max"])):
-        if peak >= widths["U"]:
-            raise ValueError(f"{what} key {peak} outside the universe "
-                             f"[0, {widths['U']})")
-    for name, w in (("scap", widths["pS"]), ("mcap", widths["pM"]),
-                    ("gcap", widths["pG"])):
-        row = view[name]
-        if row.size and (int(row.min()) < 1 or int(row.max()) > w):
-            raise ValueError(f"logical sizes {row.tolist()} outside the "
-                             f"physical ring width {w}")
+    lanes.check_values(view, widths["U"], dict(
+        scap=widths["pS"], mcap=widths["pM"], gcap=widths["pG"]), {})
 
 
 def cache_sim(state: Dict[str, torch.Tensor], trace: torch.Tensor,
@@ -225,6 +176,8 @@ def cache_sim(state: Dict[str, torch.Tensor], trace: torch.Tensor,
     view = host_view(state, trace)
     _check_values(view, widths)
     if trace.device.type == "cpu":
+        from repro_torch.kernels.cache_sim.ref import cache_sim_plain
+
         return cache_sim_plain(state, trace, out)
     if trace.device.type != "cuda":
         raise ValueError(f"cache_sim runs on cuda or cpu, not {trace.device}")

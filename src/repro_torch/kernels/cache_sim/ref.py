@@ -13,6 +13,7 @@ from typing import Dict
 import torch
 
 from repro_torch.core.engine.clock2qplus import step
+from repro_torch.kernels.lanes import replay_steps
 
 
 def cache_sim_plain(state: Dict[str, torch.Tensor], trace: torch.Tensor,
@@ -23,12 +24,4 @@ def cache_sim_plain(state: Dict[str, torch.Tensor], trace: torch.Tensor,
     per lane); keys < 0 are no-op padding.  Returns the per-request hits
     (L, T) bool for ``out="hits"``, or the per-lane hit counts (L,)
     int64 for ``out="counts"``."""
-    L = state["spos"].shape[0]
-    T = trace.shape[-1]
-    hits = torch.zeros((L, T), dtype=torch.bool, device=trace.device)
-    for t in range(T):
-        key = trace[t].expand(L) if trace.dim() == 1 else trace[:, t]
-        _, hits[:, t] = step(state, key)
-    if out == "counts":
-        return hits.sum(dim=1, dtype=torch.int64)
-    return hits
+    return replay_steps(step, state, trace, out)

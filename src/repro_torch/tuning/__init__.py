@@ -1,7 +1,7 @@
 """Batched miss-ratio-curve sweeps on the PyTorch engine (``sweep``): a
-whole tuning grid as the lanes of one ``cache_sim`` launch."""
+whole tuning grid as the lanes of one kernel launch per step family."""
 
 from repro_torch.tuning.sweep import (  # noqa: F401
-    SweepConfig, grid_init, make_grid, mrc_grid, relabel,
+    SweepConfig, grid_init, lane_hits, make_grid, mrc_grid, relabel,
     serial_sweep_hits, surface_shape, sweep_grid, sweep_hits,
 )

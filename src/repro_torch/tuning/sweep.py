@@ -1,11 +1,13 @@
 """Batched miss-ratio-curve (MRC) sweep engine on PyTorch.
 
 The port of ``repro/tuning/sweep.py``.  A tuning grid — capacities x
-correlation-window sizes x small/ghost-fraction variants — runs as the
-lanes of one ``cache_sim`` launch per policy family: every lane's rings
-are padded to the grid maxima, its logical sizes are per-lane scalars,
-and each lane is exactly the simulation a one-lane replay at that
-configuration would run.
+correlation-window sizes x small/ghost-fraction variants x policies —
+runs as the lanes of one kernel launch per step family (``cache_sim``
+for clock2q+ and clock2q, ``s3fifo_sim``, and ``simple_sim``'s FIFO,
+Clock and LRU entry points): every lane's rings are padded to its
+family's maxima, its logical sizes are per-lane scalars, and each lane
+is exactly the simulation a one-lane replay at that configuration would
+run.
 
 Keys are relabelled to a dense ``[0, n_unique)`` id space on the host
 (replacement is label-invariant), so the engine accepts raw 64-bit keys
@@ -20,8 +22,9 @@ import numpy as np
 
 from repro_torch import resolve_device
 from repro_torch.core.engine import (  # noqa: F401  (SweepConfig re-exported here)
-    SweepConfig, get_engine, grid_hit_counts, grid_init,
+    SweepConfig, get_engine, grid_hit_counts, grid_init, step_family,
 )
+from repro_torch.core.engine import lane_hits  # noqa: F401  (conformance hook)
 # re-exported where the reference's sweep module has it
 from repro_torch.traceio.formats import relabel
 
@@ -43,8 +46,9 @@ def make_grid(capacities: Sequence[int],
 def sweep_hits(trace: np.ndarray, configs: Sequence[SweepConfig],
                pad_pow2: bool = False, device=None) -> np.ndarray:
     """Exact per-config hit counts for ``trace`` over the whole grid,
-    aligned with ``configs``.  Mixed-policy grids are partitioned by
-    ``config.policy``; each partition is one kernel launch on CUDA.
+    aligned with ``configs``.  Mixed-policy grids are partitioned by step
+    family (``step_family``: clock2q+ and clock2q share one); each
+    partition is one kernel launch on CUDA.
 
     The location tables are sized to the next power of two above the
     relabelled universe (ids beyond ``n_unique`` are never accessed, so
@@ -59,12 +63,13 @@ def sweep_hits(trace: np.ndarray, configs: Sequence[SweepConfig],
         n = 1 << max(1, tr.size - 1).bit_length()
         tr = np.concatenate([tr, np.full(n - tr.size, -1, np.int32)])
     out = np.empty(len(configs), dtype=np.int64)
-    by_policy: dict = {}
+    by_family: dict = {}
     for i, c in enumerate(configs):
-        by_policy.setdefault(c.policy, []).append(i)
-    for policy, idx in by_policy.items():
+        by_family.setdefault(step_family(c.policy), []).append(i)
+    for idx in by_family.values():
         states = grid_init([configs[i] for i in idx], universe, device=dev)
-        out[idx] = grid_hit_counts(policy, states, tr).cpu().numpy()
+        out[idx] = grid_hit_counts(configs[idx[0]].policy, states,
+                                   tr).cpu().numpy()
     return out
 
 

@@ -1,6 +1,6 @@
-"""The port's Hopper kernels (``cache_sim``, ``flash_attention``,
-``paged_attention``, ``mamba_scan``) against their plain PyTorch
-versions, on a card.
+"""The port's Hopper kernels (``cache_sim``, ``s3fifo_sim``,
+``simple_sim``, ``flash_attention``, ``paged_attention``, ``mamba_scan``)
+against their plain PyTorch versions, on a card.
 Every test here is marked ``cuda`` and skips without one.
 
 This file imports nothing of JAX or ``repro``, so it runs on a machine
@@ -16,6 +16,10 @@ import torch
 from repro_torch.core import engine as peng
 from repro_torch.kernels.cache_sim import ops
 from repro_torch.kernels.cache_sim.ref import cache_sim_plain
+from repro_torch.kernels.s3fifo_sim import ops as s3ops
+from repro_torch.kernels.s3fifo_sim.ref import s3fifo_sim_plain
+from repro_torch.kernels.simple_sim import ops as simple_ops
+from repro_torch.kernels.simple_sim.ref import simple_sim_plain
 from repro_torch.tuning import sweep as psweep
 
 SHAPES = [(40, 600, 4, 200), (24, 400, 8, 80)]  # cap, T, L, U
@@ -192,6 +196,97 @@ def test_cache_sim_plain_to_kernel_handover_in_each_tier(tier, cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(torch.cat([h1, h2], dim=1), h_whole)
     assert all(torch.equal(part[k], whole[k]) for k in part)
+
+
+# -- s3fifo_sim and simple_sim: the other policy families ------------------------
+
+POLICY_GRIDS = {  # family: lane configs of one padded launch, universe
+    "s3fifo": ([peng.get_engine("s3fifo").config(c, bits=b, skip_limit=s)
+                for c in (1, 7, 60, 700) for b in (1, 2) for s in (0, 2, 16)]
+               + [peng.get_engine("s3fifo").config(300, small_frac=0.4,
+                                                   ghost_frac=0.2)], 2000),
+    "fifo": ([peng.get_engine("fifo").config(c)
+              for c in (1, 9, 250, 1500)], 2000),
+    "clock": ([peng.get_engine("clock").config(c)
+               for c in (1, 9, 250, 1500)], 2000),
+    # 3,000 slots: the argmin walks several strides of the block
+    "lru": ([peng.get_engine("lru").config(c)
+             for c in (1, 9, 250, 1500, 3000)], 8000),
+}
+
+
+def _policy_kernel(family):
+    if family == "s3fifo":
+        return s3ops, s3ops.s3fifo_sim, s3fifo_sim_plain
+    kernel = getattr(simple_ops, f"{family}_sim")
+    return (simple_ops, kernel,
+            lambda st, tr, out="hits": simple_sim_plain(family, st, tr, out))
+
+
+def _policy_rows(L, T, U, seed):
+    """Per-lane skewed rows with padding keys."""
+    rows = np.stack([_skewed_trace(T, U, seed=seed + i) for i in range(L)])
+    rows[:, ::89] = -1
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(POLICY_GRIDS))
+@pytest.mark.parametrize("shared", [True, False])
+def test_policy_kernel_equals_plain(family, shared, cuda_device):
+    """Hits (and counts) and every state tensor equal the plain version's,
+    with one trace row shared by the lanes or one row a lane."""
+    mod, kernel, plain = _policy_kernel(family)
+    cfgs, U = POLICY_GRIDS[family]
+    init = peng.grid_init(cfgs, U, device=cuda_device)
+    rows = _policy_rows(len(cfgs), 3000, U, seed=40)
+    trace = torch.from_numpy(rows[0] if shared else rows).to(cuda_device)
+    for out in ("hits", "counts"):
+        a = {k: v.clone() for k, v in init.items()}
+        b = {k: v.clone() for k, v in init.items()}
+        before = mod.launch_count
+        got = kernel(a, trace, out)
+        torch.cuda.synchronize()
+        assert mod.launch_count == before + 1
+        assert torch.equal(got, plain(b, trace, out))
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(POLICY_GRIDS))
+def test_policy_kernel_plain_to_kernel_handover(family, cuda_device):
+    """The plain version replays the first chunk, the kernel the second:
+    the same hits and state as the kernel over both."""
+    _, kernel, plain = _policy_kernel(family)
+    cfgs, U = POLICY_GRIDS[family]
+    st = peng.grid_init(cfgs, U, device=cuda_device)
+    trace = torch.from_numpy(_skewed_trace(2400, U, seed=50)).to(cuda_device)
+    whole = {k: v.clone() for k, v in st.items()}
+    h_whole = kernel(whole, trace, "hits")
+    part = {k: v.clone() for k, v in st.items()}
+    h1 = plain(part, trace[:1300].contiguous(), "hits")
+    h2 = kernel(part, trace[1300:].contiguous(), "hits")
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([h1, h2], dim=1), h_whole)
+    assert all(torch.equal(part[k], whole[k]) for k in part)
+
+
+@pytest.mark.cuda
+def test_mixed_policy_sweep_through_the_kernels_equals_the_cpu_path(
+        cuda_device):
+    """A grid of all six engines: one launch a step family on the card,
+    the plain versions on the CPU."""
+    tr = _traces(2500, 1, 600, seed=6)[0]
+    grid = [peng.get_engine(p).config(c, **kw)
+            for p, kw in (("clock2q+", {}), ("clock2q", {}), ("s3fifo", {}),
+                          ("s3fifo", dict(bits=1)), ("fifo", {}),
+                          ("clock", {}), ("lru", {}))
+            for c in (8, 40, 200)]
+    before = [m.launch_count for m in (ops, s3ops, simple_ops)]
+    got = psweep.sweep_hits(tr, grid, device=cuda_device)
+    after = [m.launch_count for m in (ops, s3ops, simple_ops)]
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 3]
+    assert np.array_equal(got, psweep.sweep_hits(tr, grid, device="cpu"))
 
 
 # -- attention kernels -------------------------------------------------------

@@ -200,7 +200,8 @@ def test_state_from_numpy_rejects_out_of_range_values(what):
 
 
 def test_registry_matches_reference():
-    assert peng.engine_names() == ["clock2q", "clock2q+"]
+    assert peng.engine_names() == jeng.engine_names() == [
+        "clock", "clock2q", "clock2q+", "fifo", "lru", "s3fifo"]
     for name in peng.engine_names():
         p, r = peng.get_engine(name), jeng.get_engine(name)
         assert p.knobs == r.knobs and dict(p.preset) == dict(r.preset)
