@@ -40,9 +40,8 @@ line.  Any mismatch or error exits non-zero before the result line, and
 so does a machine without CUDA.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --previous DIR   # the four TPU-ported kernels
-                                           # of the checkout DIR beside
-                                           # these
+    python3 chip_smoke.py --previous DIR   # the six kernels of the
+                                           # checkout DIR beside these
 """
 
 from __future__ import annotations
@@ -1276,6 +1275,192 @@ def cache_sim_previous(dev, tree: str, named):
     return rec
 
 
+POLICY_PREVIOUS = ("w01-skewed/meta", "w04-scans")
+
+
+def policy_launchers(tree: str = None):
+    """``prepare(family, state, trace, plan=None)`` of the present
+    ``s3fifo_sim`` and ``simple_sim`` kernels (the lanes' tiers ``plan``'s,
+    else the planner's), or of checkout ``tree``'s (its sources built and
+    bound with its own ``SYMBOLS``, launched through its own wrappers'
+    ``launch``, whose argument lists differ; no plan): the checks and the
+    host's part of the launch done at once, and a call that launches one
+    kernel alone (and counts no launch), as ``present_cache_sim`` does.
+    Also returns the two sources."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.s3fifo_sim import build as s3b
+    from repro_torch.kernels.s3fifo_sim import ops as s3o
+    from repro_torch.kernels.simple_sim import build as smb
+    from repro_torch.kernels.simple_sim import ops as smo
+
+    if tree is None:
+        libs = dict(s3fifo_sim=s3b.load(), simple_sim=smb.load())
+        sources = [str(s3b.SOURCE), str(smb.SOURCE)]
+
+        def prepare(family, state, trace, plan=None):
+            if family == "s3fifo":
+                _, w = s3o.check_state(state)
+                return s3o.bind(libs["s3fifo_sim"], state, trace, "counts",
+                                s3o.host_view(state, trace), w, plan)
+            _, w = smo.check_state(family, state)
+            return smo.bind(libs["simple_sim"], family, state, trace,
+                            "counts", smo.host_view(family, state, trace), w,
+                            plan)
+        return sources, prepare
+
+    mods, libs = {}, {}
+    for name in ("s3fifo_sim", "simple_sim"):
+        kdir = os.path.join(_kernel_dir(tree), name)
+        old = _load_module(os.path.join(kdir, "build.py"),
+                           f"previous_{name}_build")
+        libs[name] = kbuild.load(name, old.SOURCE, old.SYMBOLS)
+        mods[name] = _load_module(os.path.join(kdir, "ops.py"),
+                                  f"previous_{name}_ops")
+        mods[name + ".source"] = str(old.SOURCE)
+
+    def prepare(family, state, trace):
+        if family == "s3fifo":
+            _, w = s3o.check_state(state)
+            return lambda: mods["s3fifo_sim"].launch(
+                libs["s3fifo_sim"], state, trace, "counts", w)
+        _, w = smo.check_state(family, state)
+        return lambda: mods["simple_sim"].launch(
+            libs["simple_sim"], family, state, trace, "counts", w)
+    return [mods["s3fifo_sim.source"], mods["simple_sim.source"]], prepare
+
+
+def policy_sweep_inputs(dev, tr, family):
+    """``family``'s lanes of the comparison path's mixed sweep of ``tr``
+    (its configs at the 8 sweep capacities; S3-FIFO 2- and 1-bit), the
+    relabelled trace on the card, its unique count and a fresh state."""
+    from repro_torch.core import traces
+    from repro_torch.core.engine import get_engine, grid_init
+    from repro_torch.tuning.sweep import relabel
+
+    d, u = relabel(tr)
+    caps = [max(8, int(traces.footprint(tr) * f)) for f in SWEEP_FRACS]
+    cfgs = [get_engine(p).config(c, **kw) for _, p, kw in COMPARE
+            for c in caps if p == family]
+    return cfgs, torch.as_tensor(d, device=dev), u, grid_init(
+        cfgs, pow2(u), device=dev)
+
+
+def _abba(prepares, order, init, row):
+    """One launch over ``row`` on a clone of ``init`` for each name of
+    ``order`` (``prepares[name](state, row)`` as ``_run_launches`` takes
+    it): the CUDA-event ms in that order, and each name's first (hit
+    counts, state)."""
+    outs, ms = {}, []
+    for who in order:
+        st = clone(init)
+        c, t = _run_launches(prepares[who], st, [row])
+        ms.append(t)
+        outs.setdefault(who, (c, st))
+    return ms, outs
+
+
+def _outs_err(outs, a, b) -> int:
+    """The largest difference of hit counts or state between ``a`` and
+    ``b`` of ``_abba``'s ``outs``."""
+    (c_a, s_a), (c_b, s_b) = outs[a], outs[b]
+    return max(int((c_a - c_b).abs().max()), state_err(s_a, s_b))
+
+
+def _warm_policy(dev, *prepares):
+    """One small launch of every family through each of ``prepares``
+    (``policy_launchers``'), so that no timed launch is a kernel's first
+    in the process."""
+    from repro_torch.core.engine import get_engine, grid_init
+
+    warm = torch.arange(64, dtype=torch.int32, device=dev) % 20
+    for fam in POLICY_FAMILIES:
+        for prepare in prepares:
+            prepare(fam, grid_init([get_engine(fam).config(8)], 64,
+                                   device=dev), warm)()
+    torch.cuda.synchronize()
+
+
+def policy_previous(dev, tree: str, named):
+    """``tree``'s ``s3fifo_sim`` and ``simple_sim`` beside the present ones
+    at the comparison path's mixed sweeps of ``POLICY_PREVIOUS``: each new
+    family's lanes at the 8 sweep capacities (S3-FIFO 2- and 1-bit), one
+    launch each, in the order earlier, present, present, earlier, on clones
+    of one fresh state; the times are the launches' alone (CUDA events, the
+    host's work outside them); hit counts and states must be equal."""
+    from repro_torch.kernels import lanes
+
+    old_sources, old_prepare = policy_launchers(tree)
+    _, new_prepare = policy_launchers()
+    rec = dict(phase="policy_previous", tree=tree, sources=old_sources,
+               order=["previous", "present", "present", "previous"],
+               cases=[])
+    _warm_policy(dev, old_prepare, new_prepare)
+    for name in POLICY_PREVIOUS:
+        for fam in POLICY_FAMILIES:
+            cfgs, row, u, init = policy_sweep_inputs(dev, named[name], fam)
+            ms, outs = _abba(dict(
+                previous=lambda s, r, f=fam: old_prepare(f, s, r),
+                present=lambda s, r, f=fam: new_prepare(f, s, r)),
+                rec["order"], init, row)
+            err = _outs_err(outs, "previous", "present")
+            require(err == 0, f"policy_previous {name} {fam}: present != "
+                              f"previous ({err})")
+            T = row.numel()
+            misses = int(T - int(outs["present"][0].min()))
+            rec["cases"].append(dict(
+                trace=name, family=fam, lanes=len(cfgs), requests=T,
+                tiers=lanes.tier_counts(policy_plan(fam, cfgs, u).tiers),
+                previous_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+                speedup=(ms[0] + ms[3]) / (ms[1] + ms[2]),
+                previous_ns_per_step=1e6 * ms[0] / T,
+                ns_per_step=1e6 * ms[1] / T,
+                dependency_floor_ms=1e3 * (misses + -(-T // 32))
+                * SMEM_LATENCY_CYCLES / SM_CLOCK_HZ,
+                misses_max_lane=misses, max_abs_err=err))
+            del outs
+    return rec
+
+
+POLICY_TIER_SWEEPS = ("w01-skewed", "w01-skewed/meta", "w04-scans")
+
+
+def policy_tier_time(dev, named):
+    """What the planner buys ``s3fifo_sim`` and ``simple_sim``: at the
+    comparison path's mixed sweeps of ``POLICY_TIER_SWEEPS``, each new
+    family's lanes launched once with the planner's tiers and once with
+    every lane in device memory (tier 3), in the order planned, device,
+    device, planned; one launch each, on clones of one fresh state,
+    after a warm-up launch, the host's work outside the CUDA events; hit
+    counts and states must be equal."""
+    from repro_torch.kernels import lanes
+
+    _, prepare = policy_launchers()
+    _warm_policy(dev, prepare)
+    rec = dict(phase="policy_tier_time",
+               order=["planned", "device", "device", "planned"], cases=[])
+    for name in POLICY_TIER_SWEEPS:
+        for fam in POLICY_FAMILIES:
+            cfgs, row, u, init = policy_sweep_inputs(dev, named[name], fam)
+            device = lanes.plan_grid(
+                [lanes.plan_tiers(((lanes.TIER_GLOBAL, 0),))] * len(cfgs))
+            ms, outs = _abba(dict(
+                planned=lambda s, r, f=fam: prepare(f, s, r),
+                device=lambda s, r, f=fam: prepare(f, s, r, device)),
+                rec["order"], init, row)
+            err = _outs_err(outs, "planned", "device")
+            require(err == 0, f"policy_tier_time {name} {fam}: device "
+                              f"memory != planned ({err})")
+            rec["cases"].append(dict(
+                trace=name, family=fam, lanes=len(cfgs),
+                requests=row.numel(),
+                tiers=lanes.tier_counts(policy_plan(fam, cfgs, u).tiers),
+                planned_ms=[ms[0], ms[3]], device_ms=[ms[1], ms[2]],
+                device_over_planned=(ms[1] + ms[2]) / (ms[0] + ms[3]),
+                max_abs_err=err))
+            del outs, init
+    return rec
+
+
 TIER_SWEEPS = ("w01-skewed", "w04-scans")
 
 
@@ -1452,6 +1637,19 @@ def policy_kernels():
     return out
 
 
+def policy_plan(family: str, cfgs, K: int):
+    """The kernel's launch plan of ``family``'s lanes ``cfgs`` over keys
+    [0, K): each lane's tier and the blocks' shared memory."""
+    from repro_torch.core.engine import get_engine
+    from repro_torch.kernels.s3fifo_sim import ops as s3ops
+    from repro_torch.kernels.simple_sim import ops as smops
+
+    sizes = [get_engine(family).sizes_fn(c) for c in cfgs]
+    if family == "s3fifo":
+        return s3ops.plan_launch(*zip(*sizes), K)
+    return smops.plan_launch(family, [s[0] for s in sizes], K)
+
+
 def policy_bound(family: str, cfgs, unique: int, T: int):
     """The least time of one launch of ``family`` over lanes ``cfgs``: the
     trace read once; per lane the table entries of the ``unique`` keys and
@@ -1564,6 +1762,7 @@ def compare_path(dev, all_traces):
     record and each kernel's launches and per-launch CUDA-event times."""
     from repro_torch.core import make_policy, traces
     from repro_torch.core.engine import get_engine, grid_hit_arrays, grid_init
+    from repro_torch.kernels import lanes
     from repro_torch.kernels.cache_sim import ops as cops
     from repro_torch.kernels.s3fifo_sim import ops as s3ops
     from repro_torch.kernels.simple_sim import ops as smops
@@ -1612,6 +1811,16 @@ def compare_path(dev, all_traces):
             # each new family at suite_capacity, request for request
             d, u = relabel(tr)
             cap = traces.suite_capacity(d)
+            tiers = {fam: lanes.tier_counts(policy_plan(
+                fam, [c for c in grid if c.policy == fam], u).tiers)
+                for fam in POLICY_FAMILIES}
+            # The chain no lane can shorten, as sweep_time counts it: a
+            # miss (or a Ghost hit) reads what the one before wrote, and a
+            # window of hits needs its entries; the longest lane of each
+            # family's launch.
+            chain = {fam: len(tr) - int(min(
+                h for h, c in zip(hits, grid) if c.policy == fam))
+                + -(-len(tr) // 32) for fam in POLICY_FAMILIES}
             keys = d.tolist()
             t0 = time.perf_counter()
             for t in timers.values():
@@ -1629,7 +1838,11 @@ def compare_path(dev, all_traces):
             per_trace.append(dict(
                 trace=name, requests=len(tr), unique=fp, lanes=len(grid),
                 capacities=caps, miss_ratios=mrs, improvement_vs_clock=eq1,
-                sweep_ms=1e3 * sweep_s, suite_capacity=cap,
+                sweep_ms=1e3 * sweep_s, tiers_by_family=tiers,
+                dependency_chain=chain, dependency_floor_ms={
+                    fam: 1e3 * n * SMEM_LATENCY_CYCLES / SM_CLOCK_HZ
+                    for fam, n in chain.items()},
+                suite_capacity=cap,
                 oracle_families=list(POLICY_FAMILIES),
                 oracle_s=time.perf_counter() - t0, oracle_equal=True))
     finally:
@@ -1652,6 +1865,13 @@ def compare_path(dev, all_traces):
                    fam: sum(v["ms"] for k, v in times["simple_sim"].items()
                             if k[1] == fam) for fam in ("fifo", "clock",
                                                         "lru")},
+               dependency_floor="per trace and family, the dependent "
+                                "round trips of the longest lane of its "
+                                "sweep launch (one per miss or Ghost hit, "
+                                "one per window of 32 requests), each "
+                                "assumed one shared-memory round trip of "
+                                f"{SMEM_LATENCY_CYCLES} cycles at "
+                                f"{SM_CLOCK_HZ:.3g} Hz",
                headline_gap=dict(gap=gap[0], trace=gap[1], frac=gap[2],
                                  capacity=gap[3], fracs=list(HEADLINE_FRACS),
                                  of="max (MR_s3fifo - MR_clock2q+) / "
@@ -1708,10 +1928,11 @@ def policy_kernel_row(name, times, cmp, evp, families, trace, all_traces):
 
 def main() -> int:
     """Run every phase (or, with ``--previous``, only ``attn_previous``,
-    ``scan_previous`` and ``cache_sim_previous``); returns the exit code."""
+    ``scan_previous``, ``cache_sim_previous`` and ``policy_previous``);
+    returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--previous", metavar="DIR",
-                    help="only time the four kernels of the checkout DIR "
+                    help="only time the six kernels of the checkout DIR "
                          "(an earlier commit) beside the present ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1744,15 +1965,18 @@ def main() -> int:
     if args.previous:
         kdir = _kernel_dir(args.previous)
         kbuild.build_many(
-            [("cache_sim", build.SOURCE), ("mamba_scan", sops.SOURCE)]
+            [("cache_sim", build.SOURCE), ("mamba_scan", sops.SOURCE),
+             ("s3fifo_sim", s3build.SOURCE), ("simple_sim", smbuild.SOURCE)]
             + [(k, pathlib.Path(kdir, k, "csrc", f"{k}.cu")) for k in (
                 "cache_sim", "mamba_scan", "flash_attention",
-                "paged_attention")])
+                "paged_attention", "s3fifo_sim", "simple_sim")])
         emit(attn_previous(dev, args.previous))
         emit(scan_previous(dev, args.previous))
         named = {name: tr for name, tr in suite_traces(traces)
-                 if name in PREVIOUS_SWEEPS + PREVIOUS_REPLAYS}
+                 if name in PREVIOUS_SWEEPS + PREVIOUS_REPLAYS
+                 + POLICY_PREVIOUS}
         emit(cache_sim_previous(dev, args.previous, named))
+        emit(policy_previous(dev, args.previous, named))
         print(smi, flush=True)
         return 0
 
@@ -1973,6 +2197,7 @@ def main() -> int:
         emit(sweeps[name])
     kt, kt_meta = sweeps["w01-skewed"], sweeps["w01-skewed/meta"]
     emit(tier_time(dev, named))
+    emit(policy_tier_time(dev, named))
 
     # -- the policy-comparison path: S3-FIFO, FIFO, Clock, LRU on the card -----
     evp = engines_vs_plain(dev, named)

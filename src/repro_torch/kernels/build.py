@@ -3,8 +3,10 @@
 Each kernel is one ``.cu`` source with a plain C interface.  At first
 use ``nvcc`` compiles it for ``sm_90a`` into a shared library under
 ``build/repro_torch/`` at the repository root, and ``ctypes`` loads it.
-A library's name carries a hash of its source and of the flags, so an
-edited source is rebuilt and a stale library is never loaded.
+A library's name carries a hash of its source, of the headers it
+includes by a quoted path (``#include "../../lanes.cuh"``, relative to
+the source) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.
 ``build_many`` starts one ``nvcc`` per missing library, all at once, and
 waits for them together.  Nothing here runs at import: the CPU tests
 import every module of the port, and only a machine with the CUDA
@@ -17,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -52,8 +55,14 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
+
+
 def _target(name: str, source: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha1(source.read_bytes()
+    text = source.read_bytes()
+    headers = [(source.parent / inc.decode()).read_bytes()
+               for inc in _INCLUDE.findall(text)]
+    digest = hashlib.sha1(b"".join([text, *headers])
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -50,6 +50,9 @@
 // * The trace is staged in shared memory through a ring of 16 windows of
 //   32 keys, by 4-byte cp.async 14 windows ahead of use; hits are gathered
 //   one a thread and stored 32 at a time.
+// * The window loop (staging, lookahead, the rounds of hits and the step
+//   between them) is lanes.cuh's drive(), shared with s3fifo_sim.cu and
+//   simple_sim.cu; this file gives it the Clock2Q+ step (Clock2QPlus).
 //
 // What bounds it now (the chip runs in PERF.md): a window of hits costs a
 // few hundred cycles of dependent warp instructions (ballot, the hits'
@@ -65,42 +68,12 @@
 // (L,pG) int32, loc_w (L,U) int8, loc_s (L,U) int32; spos/seqctr/hand/gpos
 // and the logical sizes scap/mcap/gcap/window/skip_limit (L,) int32.
 
-#include <cuda_runtime.h>
+#include "../../lanes.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr unsigned kAll = 0xffffffffu;
-constexpr int kEmpty = -1;
 constexpr int kNone = 0, kSmall = 1, kMain = 2, kGhost = 3;
 constexpr int kScan = 4;  // slots each thread reads a pass of the clock scan
-// Windows of the trace staged in shared memory: kRing * kWarp * 4 bytes at
-// the start of every block's shared memory (ops.TRACE_BYTES).
-constexpr int kRing = 16;
-
-// Thread `lane` stages key t of the trace row (or -1 past T) in `slot` of
-// the shared ring, asynchronously (4-byte cp.async, no register waits on
-// it); the caller commits the window's group.
-__device__ __forceinline__ void stage_key(int* slot, const int* tr,
-                                          long long t, long long T) {
-  if (t < T) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(slot);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
-                 "l"(tr + t)
-                 : "memory");
-  } else {
-    *slot = -1;
-  }
-}
-
-__device__ __forceinline__ void commit_group() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wait_group() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
 
 struct Args {
   const int* trace; long long trace_stride, T;
@@ -112,33 +85,156 @@ struct Args {
   int pS, pM, pG; long long U; int K;
 };
 
-template <typename E>
-__device__ __forceinline__ void copy_row(E* dst, const E* src, int n,
-                                         int lane) {
-#pragma unroll 4
-  for (int i = lane; i < n; i += kWarp) dst[i] = src[i];
-}
+// A table entry: where a key lives (kNone..kGhost) and its slot there.
+struct Where {
+  int w, s;
+};
 
-// The working copy of one array of n elements: in shared memory at
-// `cursor` (advanced past it, the array copied in) where kShared, else the
-// array in device memory itself.
-template <bool kShared, typename E>
-__device__ __forceinline__ E* place(E*& cursor, E* g, int n, int lane) {
-  if constexpr (kShared) {
-    E* p = cursor;
-    cursor += n;
-    copy_row(p, g, n, lane);
-    return p;
-  } else {
-    return g;
+// The Clock2Q+ step for drive(); kMainShared: the Main ring in shared
+// memory (else the clock scan's first pass is loaded beside a step's
+// other loads; in shared memory it is loaded when needed).
+template <bool kMainShared>
+struct Clock2QPlus {
+  using Entry = Where;
+  int *skey, *sseq, *gkey, *mkey, *loc_s;
+  unsigned char *sref, *mref;
+  signed char* loc_w;
+  int scap, mcap, gcap, window, skip, lane;
+  int spos, seqctr, hand, gpos;
+
+  __device__ __forceinline__ Where load(int k) const {
+    return Where{loc_w[k], loc_s[k]};
   }
-}
+  __device__ __forceinline__ bool is_hit(Where e) const {
+    return e.w == kSmall || e.w == kMain;
+  }
+  __device__ __forceinline__ void window_start(unsigned) {}
+  __device__ __forceinline__ void window_end(unsigned) {}
 
-template <bool kShared, typename E>
-__device__ __forceinline__ void write_back(E* g, const E* p, int n,
-                                           int lane) {
-  if constexpr (kShared) copy_row(g, p, n, lane);
-}
+  // A hit sets its slot's ref bit (in Small, only past the correlation
+  // window); setting a bit is idempotent, so the hits of a round commute.
+  __device__ __forceinline__ void hits(Look<Where>& lk, bool mine, unsigned,
+                                       unsigned) {
+    if (!mine) return;
+    if (lk.ec.w == kMain) {
+      mref[lk.ec.s] = 1;
+    } else if (seqctr - sseq[lk.ec.s] >= window) {
+      sref[lk.ec.s] = 1;
+    }
+  }
+
+  // Thread lane's kScan slots of the clock scan's pass at distance `base`
+  // from the hand: their slots, keys and refs.
+  __device__ __forceinline__ void scan_load(int base, int (&ps)[kScan],
+                                            int (&pk)[kScan],
+                                            int (&pr)[kScan]) const {
+#pragma unroll
+    for (int q = 0; q < kScan; ++q) {
+      const int d = base + q * kWarp + lane;
+      int s = d < mcap ? hand + d : hand;
+      if (s >= mcap) s -= mcap;
+      ps[q] = s; pk[q] = mkey[s]; pr[q] = mref[s];
+    }
+  }
+
+  // Inserts `ins` into the Main ring at the closed-form clock victim: the
+  // first slot from the hand that is empty or not ref'd, within the skip
+  // limit, else the slot at the limit; the refs the hand passed are
+  // cleared.  ps/pk/pr hold the first pass where Main lives in device
+  // memory.
+  __device__ __forceinline__ void main_insert(Look<Where>& lk, int ins,
+                                              int (&ps)[kScan],
+                                              int (&pk)[kScan],
+                                              int (&pr)[kScan]) {
+    const int lim = (skip > 0 && skip < mcap) ? skip : mcap;
+    int vd = lim, victim = 0;
+    bool found = false;
+    for (int base = 0;; base += kScan * kWarp) {
+      if (kMainShared || base > 0) scan_load(base, ps, pk, pr);
+      int first = -1, kfirst = pk[0];
+#pragma unroll
+      for (int q = kScan - 1; q >= 0; --q) {
+        const int d = base + q * kWarp + lane;
+        const unsigned stop =
+            __ballot_sync(kAll, d < lim && (pk[q] < 0 || !pr[q]));
+        if (stop) {
+          first = q * kWarp + __ffs(stop) - 1;
+          kfirst = pk[q];
+        }
+      }
+      if (first >= 0) {
+        found = true;
+        vd = base + first;
+        victim = __shfl_sync(kAll, kfirst, first & (kWarp - 1));
+      }
+#pragma unroll
+      for (int q = 0; q < kScan; ++q) {  // refs the hand passed
+        const int d = base + q * kWarp + lane;
+        if (d < vd) mref[ps[q]] = 0;
+      }
+      if (found || base + kScan * kWarp >= lim) break;
+    }
+    __syncwarp();  // the cleared refs, before any thread reads them
+    int ms = hand + vd;
+    if (ms >= mcap) ms -= mcap;
+    if (!found) victim = mkey[ms];
+    if (victim >= 0) {
+      loc_w[victim] = kNone;
+      lk.fix(victim, Where{kNone, 0});
+    }
+    loc_w[ins] = kMain;
+    loc_s[ins] = ms;
+    lk.fix(ins, Where{kMain, ms});
+    mkey[ms] = ins;
+    mref[ms] = 0;
+    hand = ms + 1 == mcap ? 0 : ms + 1;
+  }
+
+  // A Ghost hit or a miss.  The key that leaves the Ghost ring or the
+  // Small FIFO is written to the table only where it lands (Main or
+  // Ghost): the plain step first marks it kNone, a write every path
+  // overwrites.
+  __device__ __forceinline__ void miss(Look<Where>& lk, int f, unsigned) {
+    const int key = __shfl_sync(kAll, lk.kc, f);
+    const int where = __shfl_sync(kAll, lk.ec.w, f);
+    const int slot = __shfl_sync(kAll, lk.ec.s, f);
+    // loads that do not depend on the key
+    const int disp = skey[spos];
+    const int disp_ref = sref[spos];
+    const int gold = gkey[gpos];
+    int ps[kScan], pk[kScan], pr[kScan];
+    if constexpr (!kMainShared) scan_load(0, ps, pk, pr);
+    if (where == kGhost) {
+      gkey[slot] = kEmpty;
+      main_insert(lk, key, ps, pk, pr);
+      return;
+    }
+    if (disp >= 0) {  // displace the Small-FIFO cursor slot
+      if (disp_ref) {  // promote to Main
+        main_insert(lk, disp, ps, pk, pr);
+      } else {  // demote: push onto the Ghost ring
+        if (gold >= 0) {
+          loc_w[gold] = kNone;
+          lk.fix(gold, Where{kNone, 0});
+        }
+        gkey[gpos] = disp;
+        loc_w[disp] = kGhost;
+        loc_s[disp] = gpos;
+        lk.fix(disp, Where{kGhost, gpos});
+        gpos = gpos + 1 == gcap ? 0 : gpos + 1;
+      }
+    }
+    // the new key enters the Small FIFO
+    skey[spos] = key;
+    sref[spos] = 0;
+    sseq[spos] = seqctr;
+    loc_w[key] = kSmall;
+    loc_s[key] = spos;
+    lk.fix(key, Where{kSmall, spos});
+    spos = spos + 1 == scap ? 0 : spos + 1;
+    seqctr += 1;
+  }
+};
 
 template <int kTier>
 __device__ __forceinline__ void run_lane(const Args& a, int l, char* smem) {
@@ -147,9 +243,7 @@ __device__ __forceinline__ void run_lane(const Args& a, int l, char* smem) {
   constexpr bool kSmallShared = kTier <= 2;  // the Small and Ghost rings
   const int lane = threadIdx.x;
   const int scap = a.scap[l], mcap = a.mcap[l], gcap = a.gcap[l];
-  const int window = a.window[l], skip = a.skip[l];
   const int K = a.K;
-  const long long T = a.T;
 
   int* const g_skey = a.skey + (long long)l * a.pS;
   int* const g_sseq = a.sseq + (long long)l * a.pS;
@@ -164,212 +258,40 @@ __device__ __forceinline__ void run_lane(const Args& a, int l, char* smem) {
   // the tier keeps them there (the 32-bit arrays first, so each is 4-byte
   // aligned), else in device memory.  ops.plan_lane counts the same bytes.
   int* const ring = reinterpret_cast<int*>(smem);
-  const int words = (kLocShared ? K : 0) + (kMainShared ? mcap : 0) +
-                    (kSmallShared ? 2 * scap + gcap : 0);
   int* wcur = ring + kRing * kWarp;
-  signed char* bcur = reinterpret_cast<signed char*>(wcur + words);
-  int* const loc_s = place<kLocShared>(wcur, g_loc_s, K, lane);
-  int* const skey = place<kSmallShared>(wcur, g_skey, scap, lane);
-  int* const sseq = place<kSmallShared>(wcur, g_sseq, scap, lane);
-  int* const gkey = place<kSmallShared>(wcur, g_gkey, gcap, lane);
-  int* const mkey = place<kMainShared>(wcur, g_mkey, mcap, lane);
-  signed char* const loc_w = place<kLocShared>(bcur, g_loc_w, K, lane);
+  Clock2QPlus<kMainShared> p;
+  p.loc_s = place<kLocShared>(wcur, g_loc_s, K, lane);
+  p.skey = place<kSmallShared>(wcur, g_skey, scap, lane);
+  p.sseq = place<kSmallShared>(wcur, g_sseq, scap, lane);
+  p.gkey = place<kSmallShared>(wcur, g_gkey, gcap, lane);
+  p.mkey = place<kMainShared>(wcur, g_mkey, mcap, lane);
+  signed char* bcur = reinterpret_cast<signed char*>(wcur);
+  p.loc_w = place<kLocShared>(bcur, g_loc_w, K, lane);
   unsigned char* ucur = reinterpret_cast<unsigned char*>(bcur);
-  unsigned char* const sref = place<kSmallShared>(ucur, g_sref, scap, lane);
-  unsigned char* const mref = place<kMainShared>(ucur, g_mref, mcap, lane);
+  p.sref = place<kSmallShared>(ucur, g_sref, scap, lane);
+  p.mref = place<kMainShared>(ucur, g_mref, mcap, lane);
   __syncwarp();
-
-  int spos = a.spos[l], seqctr = a.seqctr[l], hand = a.hand[l];
-  int gpos = a.gpos[l];
-  long long count = 0;
-  const int* tr = a.trace + (long long)l * a.trace_stride;
-  unsigned char* hrow = a.hits ? a.hits + (long long)l * T : nullptr;
-
-  // The trace goes through a ring of kRing windows in shared memory: a
-  // window's keys are staged kRing - 2 windows before their first use, so
-  // the trace's latency never reaches the step.  Thread i holds the key
-  // of step t0 + i of the current window (kc) and of the next (kn).
-  for (int w = 0; w + 1 < kRing; ++w) {
-    stage_key(ring + w * kWarp + lane, tr, (long long)w * kWarp + lane, T);
-    commit_group();
-  }
-  wait_group<kRing - 3>();  // windows 0 and 1
-  int kc = ring[lane], kn = ring[kWarp + lane];
-  // The table entries of kc (current) and kn (loads in flight), and the
-  // writes to kn's key made since its loads were issued.
-  int wc = 0, sc = 0, wn = 0, sn = 0, ow = 0, os = 0;
-  bool ovw = false, ovs = false;
-  if (kc >= 0) { wc = loc_w[kc]; sc = loc_s[kc]; }
-  if (kn >= 0) { wn = loc_w[kn]; sn = loc_s[kn]; }
-  // A write of the table, (k, w) and the slot s where has_s, applied to
-  // the entries of both windows that hold k.
-  auto fix = [&](int k, int w, int s, bool has_s) {
-    if (kc == k) { wc = w; if (has_s) sc = s; }
-    if (kn == k) {
-      ow = w; ovw = true;
-      if (has_s) { os = s; ovs = true; }
-    }
-  };
-
-  for (long long t0 = 0; t0 < T; t0 += kWarp) {
-    if (t0 > 0) {  // advance the windows
-      const long long w = t0 / kWarp;
-      stage_key(ring + ((w + kRing - 2) & (kRing - 1)) * kWarp + lane, tr,
-                t0 + (long long)(kRing - 2) * kWarp + lane, T);
-      commit_group();
-      wait_group<kRing - 3>();  // window w + 1
-      kc = kn;
-      kn = ring[((w + 1) & (kRing - 1)) * kWarp + lane];
-      wc = ovw ? ow : wn;
-      sc = ovs ? os : sn;
-      ovw = ovs = false;
-      wn = sn = 0;
-      if (kn >= 0) { wn = loc_w[kn]; sn = loc_s[kn]; }
-    }
-    // Thread i owns step t0 + i (past T a padding key, -1).  A hit only
-    // sets a ref bit, and hits commute: each run of them, up to the next
-    // step that is neither a hit nor padding, runs at once, a step a
-    // thread; that step (a Ghost hit or a miss) then runs on the whole
-    // warp, and its table writes reach the later entries of the window.
-    int hbit = 0;
-    for (int pos = 0;;) {
-      const bool easy = kc < 0 || wc == kSmall || wc == kMain;
-      const unsigned stop = __ballot_sync(kAll, !easy) & (kAll << pos);
-      const int f = stop ? __ffs(stop) - 1 : kWarp;
-      if (lane >= pos && lane < f && kc >= 0) {  // a hit
-        hbit = 1;
-        if (wc == kMain) {
-          mref[sc] = 1;
-        } else if (seqctr - sseq[sc] >= window) {  // the correlation window
-          sref[sc] = 1;
-        }
-      }
-      if (f == kWarp) break;
-      __syncwarp();  // the refs set, before any thread reads them
-      const int key = __shfl_sync(kAll, kc, f);
-      const int where = __shfl_sync(kAll, wc, f);
-      const int slot = __shfl_sync(kAll, sc, f);
-      pos = f + 1;
-      {  // a Ghost hit or a miss
-        // Loads that do not depend on the key.  The clock scan's first
-        // pass is loaded here, beside them, only where the Main ring lives
-        // in device memory; in shared memory it is loaded when needed.
-        const int disp = skey[spos];
-        const int disp_ref = sref[spos];
-        const int gold = gkey[gpos];
-        int pk[kScan], pr[kScan], ps[kScan];
-        auto scan_load = [&](int base) {
-#pragma unroll
-          for (int q = 0; q < kScan; ++q) {
-            const int d = base + q * kWarp + lane;
-            int s = d < mcap ? hand + d : hand;
-            if (s >= mcap) s -= mcap;
-            ps[q] = s; pk[q] = mkey[s]; pr[q] = mref[s];
-          }
-        };
-        if constexpr (!kMainShared) scan_load(0);
-        // The key that leaves the Ghost ring or the Small FIFO is written
-        // to the table only where it lands (Main or Ghost): the plain step
-        // first marks it kNone, a write every path overwrites.
-        int do_ins = 0, ins_key = 0, is_none = 0;
-        if (where == kGhost) {
-          gkey[slot] = kEmpty;
-          do_ins = 1;
-          ins_key = key;
-        } else {  // miss: displace the Small-FIFO cursor slot
-          is_none = 1;
-          if (disp >= 0) {
-            if (disp_ref) {  // promote to Main
-              do_ins = 1;
-              ins_key = disp;
-            } else {  // demote: push onto the Ghost ring
-              if (gold >= 0) {
-                loc_w[gold] = kNone; fix(gold, kNone, 0, false);
-              }
-              gkey[gpos] = disp;
-              loc_w[disp] = kGhost;
-              loc_s[disp] = gpos;
-              fix(disp, kGhost, gpos, true);
-              gpos = gpos + 1 == gcap ? 0 : gpos + 1;
-            }
-          }
-        }
-
-        if (do_ins) {  // Main insert: the closed-form clock victim
-          const int lim = (skip > 0 && skip < mcap) ? skip : mcap;
-          int vd = lim, victim = 0;
-          bool found = false;
-          for (int base = 0;; base += kScan * kWarp) {
-            if (kMainShared || base > 0) scan_load(base);
-            int first = -1, kfirst = pk[0];
-#pragma unroll
-            for (int q = kScan - 1; q >= 0; --q) {
-              const int d = base + q * kWarp + lane;
-              const unsigned stop = __ballot_sync(
-                  kAll, d < lim && (pk[q] < 0 || !pr[q]));
-              if (stop) {
-                first = q * kWarp + __ffs(stop) - 1;
-                kfirst = pk[q];
-              }
-            }
-            if (first >= 0) {
-              found = true;
-              vd = base + first;
-              victim = __shfl_sync(kAll, kfirst, first & (kWarp - 1));
-            }
-#pragma unroll
-            for (int q = 0; q < kScan; ++q) {  // refs the hand passed
-              const int d = base + q * kWarp + lane;
-              if (d < vd) mref[ps[q]] = 0;
-            }
-            if (found || base + kScan * kWarp >= lim) break;
-          }
-          __syncwarp();  // the cleared refs, before any thread reads them
-          int ms = hand + vd;
-          if (ms >= mcap) ms -= mcap;
-          if (!found) victim = mkey[ms];
-          if (victim >= 0) {
-            loc_w[victim] = kNone; fix(victim, kNone, 0, false);
-          }
-          loc_w[ins_key] = kMain;
-          loc_s[ins_key] = ms;
-          fix(ins_key, kMain, ms, true);
-          mkey[ms] = ins_key;
-          mref[ms] = 0;
-          hand = ms + 1 == mcap ? 0 : ms + 1;
-        }
-
-        if (is_none) {  // the new key enters the Small FIFO
-          skey[spos] = key;
-          sref[spos] = 0;
-          sseq[spos] = seqctr;
-          loc_w[key] = kSmall;
-          loc_s[key] = spos;
-          fix(key, kSmall, spos, true);
-          spos = spos + 1 == scap ? 0 : spos + 1;
-          seqctr += 1;
-        }
-      }
-      if (pos == kWarp) break;
-    }
-    count += __popc(__ballot_sync(kAll, hbit));
-    if (hrow && t0 + lane < T) hrow[t0 + lane] = (unsigned char)hbit;
-  }
-
+  p.scap = scap; p.mcap = mcap; p.gcap = gcap;
+  p.window = a.window[l]; p.skip = a.skip[l]; p.lane = lane;
+  p.spos = a.spos[l]; p.seqctr = a.seqctr[l];
+  p.hand = a.hand[l]; p.gpos = a.gpos[l];
+  const long long n = drive(p, ring, a.trace + (long long)l * a.trace_stride,
+                            a.T, a.hits ? a.hits + (long long)l * a.T
+                                        : nullptr, lane);
   if (lane == 0) {
-    a.spos[l] = spos; a.seqctr[l] = seqctr;
-    a.hand[l] = hand; a.gpos[l] = gpos;
-    if (a.counts) a.counts[l] = count;
+    a.spos[l] = p.spos; a.seqctr[l] = p.seqctr;
+    a.hand[l] = p.hand; a.gpos[l] = p.gpos;
+    if (a.counts) a.counts[l] = n;
   }
   __syncwarp();  // copy the lane back, in the plain layout
-  write_back<kLocShared>(g_loc_s, loc_s, K, lane);
-  write_back<kLocShared>(g_loc_w, loc_w, K, lane);
-  write_back<kSmallShared>(g_skey, skey, scap, lane);
-  write_back<kSmallShared>(g_sseq, sseq, scap, lane);
-  write_back<kSmallShared>(g_sref, sref, scap, lane);
-  write_back<kSmallShared>(g_gkey, gkey, gcap, lane);
-  write_back<kMainShared>(g_mkey, mkey, mcap, lane);
-  write_back<kMainShared>(g_mref, mref, mcap, lane);
+  write_back<kLocShared>(g_loc_s, p.loc_s, K, lane);
+  write_back<kLocShared>(g_loc_w, p.loc_w, K, lane);
+  write_back<kSmallShared>(g_skey, p.skey, scap, lane);
+  write_back<kSmallShared>(g_sseq, p.sseq, scap, lane);
+  write_back<kSmallShared>(g_sref, p.sref, scap, lane);
+  write_back<kSmallShared>(g_gkey, p.gkey, gcap, lane);
+  write_back<kMainShared>(g_mkey, p.mkey, mcap, lane);
+  write_back<kMainShared>(g_mref, p.mref, mcap, lane);
 }
 
 __global__ void __launch_bounds__(kWarp) cache_sim_kernel(Args a) {

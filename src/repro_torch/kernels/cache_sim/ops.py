@@ -16,43 +16,22 @@ whole grid (``tests/test_torch_kernel_plan.py`` holds both on the CPU).
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import lanes
+from repro_torch.kernels.lanes import (  # noqa: F401  (the planner's API)
+    SMEM_BLOCK, TIER_GLOBAL, TIER_RINGS, TIER_SMALL, TIER_WHOLE, TRACE_BYTES,
+    LanePlan, LaunchPlan, blocks_per_sm,
+)
 
 # Number of kernel launches in this process.
 launch_count = 0
 
 _RINGS = dict(skey="pS", sref="pS", sseq="pS", mkey="pM", mref="pM",
               gkey="pG", loc_w="U", loc_s="U")
-
-
-# Shared memory on the card (H100, sm_90): the most one block may use, an
-# SM's whole, the share the system keeps of each block, the blocks an SM
-# may hold, and the granule of an allocation.
-SMEM_BLOCK = 232_448
-SMEM_SM = 233_472
-SMEM_RESERVED = 1_024
-MAX_BLOCKS_SM = 32
-SMEM_GRANULE = 128
-# Every block stages the trace through a ring of 16 windows of 32 keys.
-TRACE_BYTES = 16 * 32 * 4
-# Where a lane lives (the kernel's ``tier``): the whole lane in shared
-# memory; the rings there and the location table in device memory; the
-# Small and Ghost rings there and the Main ring and the table in device
-# memory; all in device memory.
-TIER_WHOLE, TIER_RINGS, TIER_SMALL, TIER_GLOBAL = 0, 1, 2, 3
-
-
-class LanePlan(NamedTuple):
-    """One lane's tier, its shared-memory bytes, and how many blocks of
-    that size an SM holds."""
-    tier: int
-    smem_bytes: int
-    blocks_per_sm: int
 
 
 def small_bytes(scap: int, gcap: int) -> int:
@@ -73,44 +52,24 @@ def table_bytes(K: int) -> int:
     return 5 * K
 
 
-def blocks_per_sm(smem_bytes: int) -> int:
-    """Blocks of ``smem_bytes`` of shared memory one SM holds at once."""
-    need = -(-smem_bytes // SMEM_GRANULE) * SMEM_GRANULE + SMEM_RESERVED
-    return min(MAX_BLOCKS_SM, SMEM_SM // need)
-
-
 def plan_lane(scap: int, mcap: int, gcap: int, K: int) -> LanePlan:
     """Where the kernel keeps a lane of logical sizes ``scap``/``mcap``/
     ``gcap`` over keys [0, K): the most of it, in this order, that fits
     one block's shared memory beside the trace ring (the whole lane, its
     rings, its Small and Ghost rings); the rest in device memory."""
     rings = ring_bytes(scap, mcap, gcap)
-    for tier, smem in ((TIER_WHOLE, rings + table_bytes(K)),
-                       (TIER_RINGS, rings),
-                       (TIER_SMALL, small_bytes(scap, gcap)),
-                       (TIER_GLOBAL, 0)):
-        if smem + TRACE_BYTES <= SMEM_BLOCK:
-            break
-    smem += TRACE_BYTES
-    return LanePlan(tier, smem, blocks_per_sm(smem))
-
-
-class LaunchPlan(NamedTuple):
-    """A launch's per-lane tiers, the shared memory of each of its blocks
-    (the most any lane needs) and the blocks an SM holds."""
-    tiers: List[int]
-    smem_bytes: int
-    blocks_per_sm: int
+    return lanes.plan_tiers(((TIER_WHOLE, rings + table_bytes(K)),
+                             (TIER_RINGS, rings),
+                             (TIER_SMALL, small_bytes(scap, gcap)),
+                             (TIER_GLOBAL, 0)))
 
 
 def plan_launch(scap: Sequence[int], mcap: Sequence[int],
                 gcap: Sequence[int], K: int) -> LaunchPlan:
     """``plan_lane`` for every lane of a grid; one launch serves them
     all, every block with the shared memory of the largest."""
-    lanes = [plan_lane(int(s), int(m), int(g), K)
-             for s, m, g in zip(scap, mcap, gcap)]
-    smem = max((p.smem_bytes for p in lanes), default=0)
-    return LaunchPlan([p.tier for p in lanes], smem, blocks_per_sm(smem))
+    return lanes.plan_grid([plan_lane(int(s), int(m), int(g), K)
+                            for s, m, g in zip(scap, mcap, gcap)])
 
 
 def check_state(state: Dict[str, torch.Tensor]):
@@ -144,17 +103,13 @@ def key_range(state: Dict[str, torch.Tensor], trace: torch.Tensor) -> int:
     and of the state's rings (a chunked replay's rings hold keys of
     earlier chunks).  Every index of ``loc_*`` a launch reads or writes is
     below it."""
-    return _key_range(host_view(state, trace))
-
-
-def _key_range(view) -> int:
-    return 1 + max(view["trace_max"], view["ring_max"], 0)
+    return lanes.key_range(host_view(state, trace))
 
 
 def plan_view(view) -> LaunchPlan:
     """The launch plan of a ``host_view``: its lanes' tiers over K."""
     return plan_launch(view["scap"], view["mcap"], view["gcap"],
-                       _key_range(view))
+                       lanes.key_range(view))
 
 
 def _check_values(view, widths) -> None:
@@ -196,7 +151,7 @@ def launch(lib, state: Dict[str, torch.Tensor], trace: torch.Tensor,
     count the launch."""
     L, T = state["spos"].shape[0], trace.shape[-1]
     dev = trace.device
-    K = _key_range(view)
+    K = lanes.key_range(view)
     plan = plan_view(view)
     tiers = torch.tensor(plan.tiers, dtype=torch.int32).to(dev)
     hits = torch.empty((L, T), dtype=torch.bool, device=dev) \

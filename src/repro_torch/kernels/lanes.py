@@ -1,23 +1,101 @@
 """What the lane-replay kernels (``cache_sim``, ``s3fifo_sim``,
 ``simple_sim``) share around their launches: the checks of a state and a
 trace against the layout a kernel takes, the one host read of a launch's
-values, and the loop their plain versions run.
+values, the planner of where a kernel keeps each lane, and the loop their
+plain versions run.
 
 A state is a dict of tensors with a leading lane axis: ``(L, width)``
 rings and tables and ``(L,)`` per-lane scalars.  ``dtypes`` names every
 tensor of a family and its dtype; ``rings`` names the ``(L, width)`` ones
 and the width each is padded to (rings of one width name share it).
+
+Each kernel runs a lane on one warp, one lane a block, and keeps as much
+of the lane as fits in the block's shared memory, chosen per lane on the
+host: a lane's *tier* names what lives there.  ``plan_tiers`` picks the
+first of a family's tiers whose bytes fit beside the trace ring, and
+``plan_grid`` plans a launch, whose blocks all take the largest lane's
+shared memory.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
 OUTS = ("hits", "counts")
 State = Dict[str, torch.Tensor]
+
+# Shared memory on the card (H100, sm_90): the most one block may use, an
+# SM's whole, the share the system keeps of each block, the blocks an SM
+# may hold, and the granule of an allocation.
+SMEM_BLOCK = 232_448
+SMEM_SM = 233_472
+SMEM_RESERVED = 1_024
+MAX_BLOCKS_SM = 32
+SMEM_GRANULE = 128
+# Every block stages the trace through a ring of 16 windows of 32 keys.
+TRACE_BYTES = 16 * 32 * 4
+# Where a lane lives (the kernels' ``tier``): the whole lane in shared
+# memory; the rings there and the location table in device memory; (for
+# the two-queue families) the Small and Ghost rings there and the Main
+# ring and the table in device memory; all in device memory.
+TIER_WHOLE, TIER_RINGS, TIER_SMALL, TIER_GLOBAL = 0, 1, 2, 3
+TIERS = (TIER_WHOLE, TIER_RINGS, TIER_SMALL, TIER_GLOBAL)
+
+
+class LanePlan(NamedTuple):
+    """One lane's tier, its shared-memory bytes, and how many blocks of
+    that size an SM holds."""
+    tier: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+class LaunchPlan(NamedTuple):
+    """A launch's per-lane tiers, the shared memory of each of its blocks
+    (the most any lane needs) and the blocks an SM holds."""
+    tiers: List[int]
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def blocks_per_sm(smem_bytes: int) -> int:
+    """Blocks of ``smem_bytes`` of shared memory one SM holds at once."""
+    need = -(-smem_bytes // SMEM_GRANULE) * SMEM_GRANULE + SMEM_RESERVED
+    return min(MAX_BLOCKS_SM, SMEM_SM // need)
+
+
+def plan_tiers(options: Sequence[Tuple[int, int]]) -> LanePlan:
+    """The first ``(tier, bytes)`` of ``options`` (a family's tiers in
+    order of preference, the last ``(TIER_GLOBAL, 0)``) whose bytes fit
+    one block's shared memory beside the trace ring."""
+    for tier, smem in options:
+        if smem + TRACE_BYTES <= SMEM_BLOCK:
+            break
+    smem += TRACE_BYTES
+    return LanePlan(tier, smem, blocks_per_sm(smem))
+
+
+def plan_grid(lanes: Sequence[LanePlan]) -> LaunchPlan:
+    """A launch of ``lanes``: every block with the shared memory of the
+    largest."""
+    smem = max((p.smem_bytes for p in lanes), default=0)
+    return LaunchPlan([p.tier for p in lanes], smem, blocks_per_sm(smem))
+
+
+def key_range(view: Mapping[str, np.ndarray]) -> int:
+    """K of a ``host_view``: 1 + the largest key of the trace and of the
+    state's rings (a chunked replay's rings hold keys of earlier chunks).
+    Every index of a location table a launch reads or writes is below
+    it."""
+    return 1 + max(view["trace_max"], view["ring_max"], 0)
+
+
+def tier_counts(tiers: Sequence[int]) -> List[int]:
+    """How many lanes a plan keeps in each tier, in ``TIERS`` order."""
+    return [list(tiers).count(t) for t in TIERS]
 
 
 def check_state(state: State, dtypes: Mapping[str, torch.dtype],

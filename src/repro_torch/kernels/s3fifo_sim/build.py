@@ -16,7 +16,8 @@ from repro_torch.kernels import build as _build
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "s3fifo_sim.cu"
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SYMBOLS = {"s3fifo_sim_launch":
-           [_p, _i64, _i64, _p, _p] + [_p] * 17 + [_i32] * 4 + [_i64, _p]}
+           [_p, _i64, _i64, _p, _p] + [_p] * 18 + [_i32] * 4
+           + [_i64, _i32, _i32, _p]}
 
 # What the build that loaded the library reported (``build.info``).
 build_info = _build.info("s3fifo_sim")

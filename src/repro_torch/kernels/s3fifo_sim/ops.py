@@ -8,20 +8,78 @@ runs the plain version (``ref.py``).
 
 ``launch_count`` counts kernel launches (a plain integer; reset it by
 assigning 0), so a run can show that its path went through the kernel.
+
+``plan_lane`` (plain Python) picks where the kernel keeps each lane: the
+whole lane in one block's shared memory, its rings there, its Small and
+Ghost rings there, or all of it in device memory; ``plan_launch`` plans a
+whole grid (``tests/test_torch_policy_plan.py`` holds both on the CPU).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import lanes
+from repro_torch.kernels.lanes import (
+    TIER_GLOBAL, TIER_RINGS, TIER_SMALL, TIER_WHOLE, LanePlan, LaunchPlan,
+)
 
 # Number of kernel launches in this process.
 launch_count = 0
 
 _SCALARS = ("scap", "mcap", "gcap", "spos", "mhead", "mcount", "gpos")
+
+
+def small_bytes(scap: int, gcap: int) -> int:
+    """Bytes of a lane's Small and Ghost rings at their logical sizes:
+    skey and sfreq (int32) per Small slot, gkey per Ghost slot."""
+    return 8 * scap + 4 * gcap
+
+
+def ring_bytes(scap: int, mcap: int, gcap: int) -> int:
+    """Bytes of all a lane's rings: ``small_bytes`` and mkey and mfreq
+    (int32) per Main slot."""
+    return small_bytes(scap, gcap) + 8 * mcap
+
+
+def table_bytes(K: int) -> int:
+    """Bytes of ``loc_w`` (int8) and ``loc_s`` (int32) over keys [0, K)."""
+    return 5 * K
+
+
+def plan_lane(scap: int, mcap: int, gcap: int, K: int) -> LanePlan:
+    """Where the kernel keeps a lane of logical sizes ``scap``/``mcap``/
+    ``gcap`` over keys [0, K): the most of it, in this order, that fits
+    one block's shared memory beside the trace ring (the whole lane, its
+    rings, its Small and Ghost rings); the rest in device memory."""
+    rings = ring_bytes(scap, mcap, gcap)
+    return lanes.plan_tiers(((TIER_WHOLE, rings + table_bytes(K)),
+                             (TIER_RINGS, rings),
+                             (TIER_SMALL, small_bytes(scap, gcap)),
+                             (TIER_GLOBAL, 0)))
+
+
+def plan_launch(scap: Sequence[int], mcap: Sequence[int],
+                gcap: Sequence[int], K: int) -> LaunchPlan:
+    """``plan_lane`` for every lane of a grid; one launch serves them
+    all, every block with the shared memory of the largest."""
+    return lanes.plan_grid([plan_lane(int(s), int(m), int(g), K)
+                            for s, m, g in zip(scap, mcap, gcap)])
+
+
+def host_view(state, trace) -> Dict[str, np.ndarray]:
+    """What the host needs of a launch, in one read from the device: the
+    largest trace and ring keys and the per-lane sizes and cursors."""
+    return lanes.host_view(state, trace, ("skey", "mkey", "gkey"), _SCALARS)
+
+
+def plan_view(view) -> LaunchPlan:
+    """The launch plan of a ``host_view``: its lanes' tiers over K."""
+    return plan_launch(view["scap"], view["mcap"], view["gcap"],
+                       lanes.key_range(view))
 
 
 def check_state(state: Dict[str, torch.Tensor]):
@@ -57,8 +115,8 @@ def s3fifo_sim(state: Dict[str, torch.Tensor], trace: torch.Tensor,
     global launch_count
     L, widths = check_state(state)
     lanes.check_trace(trace, L, state["spos"].device, out)
-    check_values(lanes.host_view(state, trace, ("skey", "mkey", "gkey"),
-                                 _SCALARS), widths)
+    view = host_view(state, trace)
+    check_values(view, widths)
     if trace.device.type == "cpu":
         from repro_torch.kernels.s3fifo_sim.ref import s3fifo_sim_plain
 
@@ -68,34 +126,53 @@ def s3fifo_sim(state: Dict[str, torch.Tensor], trace: torch.Tensor,
                          f"{trace.device}")
     from repro_torch.kernels.s3fifo_sim.build import load
 
-    result = launch(load(), state, trace, out, widths)
+    result = launch(load(), state, trace, out, view, widths)
     launch_count += 1
     return result
 
 
 def launch(lib, state: Dict[str, torch.Tensor], trace: torch.Tensor,
-           out: str, widths) -> torch.Tensor:
-    """One launch of library ``lib``'s kernel on checked inputs
-    (``widths`` from ``check_state``); returns what ``s3fifo_sim``
-    returns.  It does not count the launch."""
+           out: str, view, widths) -> torch.Tensor:
+    """One launch of library ``lib``'s kernel on checked inputs (``view``
+    from ``host_view``, ``widths`` from ``check_state``): ``bind`` and its
+    call; returns what ``s3fifo_sim`` returns.  It does not count the
+    launch."""
+    return bind(lib, state, trace, out, view, widths)()
+
+
+def bind(lib, state: Dict[str, torch.Tensor], trace: torch.Tensor,
+         out: str, view, widths,
+         plan: LaunchPlan = None) -> Callable[[], torch.Tensor]:
+    """The host's part of one launch of library ``lib``'s kernel on
+    checked inputs (``view`` from ``host_view``, ``widths`` from
+    ``check_state``): the lanes' tiers (``plan``, else ``plan_view``'s)
+    copied to the card and the outputs allocated.  Returns a call that
+    launches the kernel alone and returns what ``s3fifo_sim`` returns;
+    it does not count the launch."""
     L, T = state["spos"].shape[0], trace.shape[-1]
     dev = trace.device
+    if plan is None:
+        plan = plan_view(view)
+    tiers = torch.tensor(plan.tiers, dtype=torch.int32).to(dev)
     hits = torch.empty((L, T), dtype=torch.bool, device=dev) \
         if out == "hits" else None
     counts = torch.empty((L,), dtype=torch.int64, device=dev) \
         if out == "counts" else None
-    s = state
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.s3fifo_sim_launch(
-            trace.data_ptr(), T if trace.dim() == 2 else 0, T,
+    args = (trace.data_ptr(), T if trace.dim() == 2 else 0, T,
             hits.data_ptr() if hits is not None else None,
             counts.data_ptr() if counts is not None else None,
-            *(s[k].data_ptr() for k in (
+            *(state[k].data_ptr() for k in (
                 "skey", "sfreq", "spos", "mkey", "mfreq", "mhead", "mcount",
                 "gkey", "gpos", "loc_w", "loc_s", "freq_cap", "promote_at",
-                "scap", "mcap", "gcap", "skip_limit")),
-            L, widths["pS"], widths["pM"], widths["pG"], widths["U"], stream)
-    if err != 0:
-        raise RuntimeError(f"s3fifo_sim launch failed: CUDA error {err}")
-    return hits if out == "hits" else counts
+                "scap", "mcap", "gcap", "skip_limit")), tiers.data_ptr(),
+            L, widths["pS"], widths["pM"], widths["pG"], widths["U"],
+            lanes.key_range(view), plan.smem_bytes)
+
+    def go() -> torch.Tensor:
+        with torch.cuda.device(dev):
+            err = lib.s3fifo_sim_launch(
+                *args, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"s3fifo_sim launch failed: CUDA error {err}")
+        return hits if out == "hits" else counts
+    return go

@@ -16,9 +16,10 @@ from repro_torch.kernels import build as _build
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "simple_sim.cu"
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _HEAD = [_p, _i64, _i64, _p, _p]  # trace, trace_stride, T, hits, counts
-SYMBOLS = {"fifo_sim_launch": _HEAD + [_p] * 4 + [_i32, _i32, _i64, _p],
-           "clock_sim_launch": _HEAD + [_p] * 5 + [_i32, _i32, _i64, _p],
-           "lru_sim_launch": _HEAD + [_p] * 5 + [_i32, _i32, _i64, _p]}
+_TAIL = [_i32, _i32, _i64, _i32]  # L, pC, U, K
+SYMBOLS = {"fifo_sim_launch": _HEAD + [_p] * 5 + _TAIL + [_i32, _p],
+           "clock_sim_launch": _HEAD + [_p] * 6 + _TAIL + [_i32, _p],
+           "lru_sim_launch": _HEAD + [_p] * 8 + _TAIL + [_i64, _i32, _p]}
 
 # What the build that loaded the library reported (``build.info``).
 build_info = _build.info("simple_sim")

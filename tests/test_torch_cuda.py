@@ -209,7 +209,7 @@ POLICY_GRIDS = {  # family: lane configs of one padded launch, universe
               for c in (1, 9, 250, 1500)], 2000),
     "clock": ([peng.get_engine("clock").config(c)
                for c in (1, 9, 250, 1500)], 2000),
-    # 3,000 slots: the argmin walks several strides of the block
+    # 3,000 slots: the LRU log and its fronts span many passes of 32
     "lru": ([peng.get_engine("lru").config(c)
              for c in (1, 9, 250, 1500, 3000)], 8000),
 }
@@ -287,6 +287,315 @@ def test_mixed_policy_sweep_through_the_kernels_equals_the_cpu_path(
     after = [m.launch_count for m in (ops, s3ops, simple_ops)]
     assert [b - a for a, b in zip(before, after)] == [1, 1, 3]
     assert np.array_equal(got, psweep.sweep_hits(tr, grid, device="cpu"))
+
+
+# -- s3fifo_sim and simple_sim: tiers, short rings, the lookahead, LRU's log -----
+
+
+def _filled_policy_state(family, cfgs, U, seed, device, lru="distinct"):
+    """A grid state of ``family`` whose rings are nine tenths full of
+    distinct keys, with random freqs / refs / ages and cursors and a
+    location table that agrees, so the victim searches walk from the
+    first request on.  ``lru`` picks LRU's ages: ``distinct`` (below t, as
+    a replay leaves them), ``ties`` (few distinct values) or ``late``
+    (some at or above t)."""
+    st = peng.grid_init(cfgs, U, device="cpu")
+    rng = np.random.default_rng(seed)
+    for l in range(len(cfgs)):
+        if family == "s3fifo":
+            S, M, G = (int(st[k][l]) for k in ("scap", "mcap", "gcap"))
+            fill = min(0.9, 0.9 * U / (S + M + G))
+            nS, nM, nG = (max(1, int(fill * n)) for n in (S, M, G))
+            if nS + M + nG <= U:  # a full Main ring: walks from the start
+                nM = M
+            keys = rng.permutation(U)[:nS + nM + nG]
+            fcap = int(st["freq_cap"][l])
+            for ring, freq, code, ks, n, cap, cur in (
+                    ("skey", "sfreq", peng.W_SMALL, keys[:nS], nS, S, "spos"),
+                    ("mkey", "mfreq", peng.W_MAIN, keys[nS:nS + nM], nM, M,
+                     "mhead"),
+                    ("gkey", None, peng.W_GHOST, keys[nS + nM:], nG, G,
+                     "gpos")):
+                st[ring][l, :n] = torch.from_numpy(ks.astype(np.int32))
+                if freq:
+                    st[freq][l, :n] = torch.from_numpy(
+                        rng.integers(0, fcap + 1, n).astype(np.int32))
+                idx = torch.from_numpy(ks.astype(np.int64))
+                st["loc_w"][l, idx] = code
+                st["loc_s"][l, idx] = torch.arange(n, dtype=torch.int32)
+                st[cur][l] = int(rng.integers(cap)) \
+                    if code != peng.W_MAIN or n == M else 0
+            st["mcount"][l] = nM
+            continue
+        C = int(st["cap"][l])
+        n = max(1, int(min(0.9, 0.9 * U / C) * C))
+        slots = torch.from_numpy(rng.permutation(C)[:n].astype(np.int64))
+        ks = torch.from_numpy(rng.permutation(U)[:n].astype(np.int32))
+        st["keys"][l, slots] = ks
+        if family == "fifo":
+            st["resident"][l, ks.long()] = True
+            st["pos"][l] = int(rng.integers(C))
+        else:
+            st["loc"][l, ks.long()] = slots.to(torch.int32)
+        if family == "clock":
+            st["ref"][l, :C] = torch.from_numpy(rng.random(C) < 0.7)
+            st["hand"][l] = int(rng.integers(C))
+        if family == "lru":
+            t = 5 * C + 100
+            vals = {"distinct": rng.permutation(t)[:C],
+                    "ties": rng.integers(0, 4, C),
+                    "late": rng.integers(t - C, t + C, C)}[lru]
+            st["last"][l, :C] = torch.from_numpy(vals.astype(np.int32))
+            st["t"][l] = t
+    return {k: v.to(device) for k, v in st.items()}
+
+
+def _s3(c, **kw):
+    return peng.get_engine("s3fifo").config(c, **kw)
+
+
+def _policy_cfgs(family, caps):
+    if family == "s3fifo":
+        return [_s3(c, bits=b, skip_limit=s) for c in caps
+                for b, s in ((2, 0), (1, 2), (2, 1))]
+    return [peng.get_engine(family).config(c) for c in caps]
+
+
+POLICY_TIERS = {  # (family, tier): (capacities, key range)
+    ("s3fifo", 0): ([64, 1500], 4096), ("s3fifo", 1): ([200, 2000], 65536),
+    ("s3fifo", 2): ([30000], 131072), ("s3fifo", 3): ([60000], 262144),
+    ("fifo", 0): ([64, 1500], 4096), ("fifo", 1): ([2000], 262144),
+    ("fifo", 3): ([60000], 262144),
+    ("clock", 0): ([64, 1500], 4096), ("clock", 1): ([2000], 65536),
+    ("clock", 3): ([50000], 131072),
+    ("lru", 0): ([64, 1500], 4096), ("lru", 1): ([2000], 65536),
+    ("lru", 3): ([12000], 65536),
+}
+
+
+def _policy_plan(family, st, trace):
+    if family == "s3fifo":
+        return s3ops.plan_view(s3ops.host_view(st, trace))
+    return simple_ops.plan_view(family,
+                                simple_ops.host_view(family, st, trace))
+
+
+def _policy_kernel_and_plain(family, state, trace, out="hits"):
+    mod, kernel, plain = _policy_kernel(family)
+    a = {k: v.clone() for k, v in state.items()}
+    b = {k: v.clone() for k, v in state.items()}
+    before = mod.launch_count
+    got = kernel(a, trace, out)
+    torch.cuda.synchronize()
+    assert mod.launch_count == before + 1
+    want = plain(b, trace, out)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    return got, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,tier", sorted(POLICY_TIERS))
+def test_policy_kernel_each_tier_equals_plain(family, tier, cuda_device):
+    caps, U = POLICY_TIERS[family, tier]
+    st = _filled_policy_state(family, _policy_cfgs(family, caps), U,
+                              seed=tier, device=cuda_device)
+    trace = torch.from_numpy(_skewed_trace(2048, U, seed=tier)).to(
+        cuda_device)
+    assert max(_policy_plan(family, st, trace).tiers) == tier
+    _policy_kernel_and_plain(family, st, trace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,tier", sorted(POLICY_TIERS))
+def test_policy_kernel_plain_to_kernel_handover_in_each_tier(family, tier,
+                                                             cuda_device):
+    """The plain version replays the first chunk, the kernel the second:
+    the same hits and state as the kernel over both."""
+    _, kernel, plain = _policy_kernel(family)
+    caps, U = POLICY_TIERS[family, tier]
+    st = _filled_policy_state(family, _policy_cfgs(family, caps), U,
+                              seed=20 + tier, device=cuda_device)
+    trace = torch.from_numpy(_skewed_trace(1024, U, seed=30 + tier)).to(
+        cuda_device)
+    whole = {k: v.clone() for k, v in st.items()}
+    h_whole = kernel(whole, trace, "hits")
+    part = {k: v.clone() for k, v in st.items()}
+    h1 = plain(part, trace[:600].contiguous(), "hits")
+    h2 = kernel(part, trace[600:].contiguous(), "hits")
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([h1, h2], dim=1), h_whole)
+    assert all(torch.equal(part[k], whole[k]) for k in part)
+
+
+POLICY_MIXED = {  # family: (capacities, key range): a lane in every tier
+    "s3fifo": ([64, 10000, 30000, 60000], 30000),
+    "fifo": ([64, 30000, 60000], 150000),
+    "clock": ([64, 20000, 50000], 40000),
+    "lru": ([64, 5000, 12000], 40000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(POLICY_MIXED))
+def test_policy_kernel_mixed_tiers_in_one_launch(family, cuda_device):
+    """One launch over lanes of every tier of the family, per-lane rows
+    with padding keys and a row of padding only; hits and counts."""
+    caps, U = POLICY_MIXED[family]
+    st = _filled_policy_state(family, _policy_cfgs(family, caps), U, seed=7,
+                              device=cuda_device)
+    L = st["spos" if family == "s3fifo" else "cap"].shape[0]
+    rows = np.stack([_skewed_trace(1500, U, seed=10 + i) for i in range(L)])
+    rows[:, ::97] = -1
+    rows[1] = -1
+    trace = torch.from_numpy(rows).to(cuda_device)
+    tiers = _policy_plan(family, st, trace).tiers
+    assert set(tiers) == ({0, 1, 2, 3} if family == "s3fifo" else {0, 1, 3})
+    for out in ("hits", "counts"):
+        _policy_kernel_and_plain(family, st, trace, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["s3fifo", "fifo", "clock", "lru"])
+def test_policy_kernel_forced_into_device_memory_equals_plain(family,
+                                                              cuda_device):
+    """``bind`` with a plan that puts every lane in device memory (as
+    chip_smoke's policy_tier_time launches them): lanes the planner keeps
+    whole in shared memory give the plain version's hits and state."""
+    from repro_torch.kernels import lanes
+
+    caps, U = POLICY_TIERS[family, 0]
+    st = _filled_policy_state(family, _policy_cfgs(family, caps), U, seed=3,
+                              device=cuda_device)
+    trace = torch.from_numpy(_skewed_trace(2048, U, seed=4)).to(cuda_device)
+    assert set(_policy_plan(family, st, trace).tiers) == {lanes.TIER_WHOLE}
+    plan = lanes.plan_grid([lanes.plan_tiers(((lanes.TIER_GLOBAL, 0),))]
+                           * len(_policy_plan(family, st, trace).tiers))
+    a = {k: v.clone() for k, v in st.items()}
+    b = {k: v.clone() for k, v in st.items()}
+    if family == "s3fifo":
+        from repro_torch.kernels.s3fifo_sim.build import load
+
+        _, w = s3ops.check_state(a)
+        got = s3ops.bind(load(), a, trace, "hits", s3ops.host_view(a, trace),
+                         w, plan)()
+    else:
+        from repro_torch.kernels.simple_sim.build import load
+
+        _, w = simple_ops.check_state(family, a)
+        got = simple_ops.bind(load(), family, a, trace, "hits",
+                              simple_ops.host_view(family, a, trace), w,
+                              plan)()
+    torch.cuda.synchronize()
+    want = _policy_kernel(family)[2](b, trace, "hits")
+    assert torch.equal(got, want)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["s3fifo", "fifo", "clock", "lru"])
+def test_policy_kernel_rings_shorter_than_a_warp(family, cuda_device):
+    """Rings of 1-31 slots (S3-FIFO's Main ring too): a pass of 32 visits
+    a slot several times; skip limits 1 and 2; filled and fresh."""
+    caps = list(range(1, 36)) if family == "s3fifo" else list(range(1, 32))
+    cfgs = _policy_cfgs(family, caps)
+    if family == "s3fifo":
+        mcaps = {peng.get_engine("s3fifo").sizes_fn(c)[1] for c in cfgs}
+        assert set(range(1, 32)) <= mcaps
+    U = 48
+    rows = np.stack([_skewed_trace(2048, U, seed=60 + i)
+                     for i in range(len(cfgs))]).astype(np.int32)
+    trace = torch.from_numpy(rows).to(cuda_device)
+    _policy_kernel_and_plain(family, peng.grid_init(cfgs, U,
+                                                    device=cuda_device),
+                             trace)
+    _policy_kernel_and_plain(family, _filled_policy_state(
+        family, cfgs, U, seed=61, device=cuda_device), trace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["s3fifo", "fifo", "clock", "lru"])
+def test_policy_kernel_windows_that_repeat_one_slot(family, cuda_device):
+    """Two-key traces: every window hits one or two slots many times
+    (S3-FIFO's freqs saturate by grouped hits)."""
+    rng = np.random.default_rng(70)
+    rows = np.stack([np.where(rng.random(3000) < p, 0, 1)
+                     for p in (0.5, 0.9, 0.99, 1.0)]).astype(np.int32)
+    cfgs = _policy_cfgs(family, [1, 2, 8, 40])
+    rows = np.repeat(rows, len(cfgs) // 4, axis=0)
+    trace = torch.from_numpy(rows).to(cuda_device)
+    _policy_kernel_and_plain(family, peng.grid_init(cfgs, 64,
+                                                    device=cuda_device),
+                             trace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["s3fifo", "fifo", "clock", "lru"])
+def test_policy_kernel_rerequest_within_64_of_an_eviction(family,
+                                                          cuda_device):
+    """Loops over cap + 1 .. cap + 5 keys: each key comes back a few
+    requests after the miss that evicts it, inside the window in flight
+    or the next, so every table write of a miss must reach the held
+    entries of both windows."""
+    caps = [2, 3, 7, 15, 30, 50]
+    cfgs = _policy_cfgs(family, caps)
+    per = len(cfgs) // len(caps)
+    rng = np.random.default_rng(80)
+    rows = []
+    for c in caps:
+        for j in range(per):
+            loop = c + 1 + (j % 5)
+            r = np.arange(4000) % loop
+            noise = rng.random(4000) < 0.05
+            r[noise] = rng.integers(0, 200, int(noise.sum()))
+            rows.append(r)
+    trace = torch.from_numpy(np.stack(rows).astype(np.int32)).to(cuda_device)
+    _policy_kernel_and_plain(family, peng.grid_init(cfgs, 256,
+                                                    device=cuda_device),
+                             trace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["distinct", "ties", "late"])
+def test_lru_kernel_takes_any_carried_in_ages(how, cuda_device):
+    """LRU states whose ages are distinct, tied, or at or above t: the
+    victim is the first index of the smallest ``last`` all the same."""
+    caps = [5, 64, 700, 2000]
+    cfgs = _policy_cfgs("lru", caps)
+    st = _filled_policy_state("lru", cfgs, 4096, seed=90,
+                              device=cuda_device, lru=how)
+    trace = torch.from_numpy(_skewed_trace(3000, 4096, seed=91)).to(
+        cuda_device)
+    _policy_kernel_and_plain("lru", st, trace)
+
+
+@pytest.mark.cuda
+def test_lru_log_compacts_many_times_in_one_launch(cuda_device):
+    """Small rings over loops of 3 cap + 5 keys: every access is a miss
+    and appends to the log of 2 cap + 64 entries, which compacts once
+    every cap + 64 appends -- 20 times or more in the launch."""
+    caps = [1, 8, 33, 100]
+    T = 6000
+    assert all(T // (c + simple_ops.LOG_SLACK) >= 20 for c in caps)
+    rows = np.stack([(np.arange(T) * 7) % (3 * c + 5) for c in caps])
+    trace = torch.from_numpy(rows.astype(np.int32)).to(cuda_device)
+    cfgs = _policy_cfgs("lru", caps)
+    _policy_kernel_and_plain("lru", peng.grid_init(cfgs, 512,
+                                                   device=cuda_device),
+                             trace)
+    _policy_kernel_and_plain("lru", _filled_policy_state(
+        "lru", cfgs, 512, seed=95, device=cuda_device), trace)
+
+
+@pytest.mark.cuda
+def test_policy_kernels_raise_on_a_cuda_launch_they_refuse(cuda_device):
+    """No quiet fallback: a timestamp that would wrap is refused before
+    any launch, on the card as on the CPU."""
+    st = peng.grid_init(_policy_cfgs("lru", [8]), 64, device=cuda_device)
+    st["t"][0] = 2**31 - 10
+    with pytest.raises(ValueError, match="wrap"):
+        simple_ops.lru_sim(st, torch.zeros(20, dtype=torch.int32,
+                                           device=cuda_device))
 
 
 # -- attention kernels -------------------------------------------------------
