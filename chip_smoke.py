@@ -1880,11 +1880,13 @@ def compare_path(dev, all_traces):
     return rec, times
 
 
-def policy_kernel_row(name, times, cmp, evp, families, trace, all_traces):
+def policy_kernel_row(name, times, cmp, evp, families, trace, all_traces,
+                      **paths):
     """The ``kernels`` line's entry of the new kernel ``name`` (serving
     ``families``): ``ms`` the sum of its launches at ``trace``'s mixed
     sweep (CUDA events), its bound there, the plain version's time at
-    ``engines_vs_plain``'s grids."""
+    ``engines_vs_plain``'s grids; ``paths`` are its launches on paths
+    other than ``compare_path``, by path."""
     from repro_torch.core import traces
     from repro_torch.core.engine import get_engine
 
@@ -1910,7 +1912,8 @@ def policy_kernel_row(name, times, cmp, evp, families, trace, all_traces):
                   "src/repro/core/engine/simple.py:43 fifo_step, :70 "
                   "clock_step, :113 lru_step (jit lax.scan, vmapped over "
                   "lanes)"),
-        launches=cmp["launches"][name],
+        launches=cmp["launches"][name] + sum(paths.values()),
+        launches_by_path=dict(compare_path=cmp["launches"][name], **paths),
         max_abs_err=max(fams[f]["max_abs_err"] for f in families),
         ms=sum(ms_by_family.values()), ms_by_family=ms_by_family,
         plain_ms=sum(fams[f]["plain_ms"] for f in families),
@@ -1924,6 +1927,233 @@ def policy_kernel_row(name, times, cmp, evp, families, trace, all_traces):
         plain_shape=", ".join(f"{f}: {fams[f]['lanes']} lanes" for f in
                               families) + f" x {PREFIX} requests",
         kernel_ms_at_plain_shape=sum(fams[f]["kernel_ms"] for f in families))
+
+
+# -- the sharded service and the online tuner on the day-scale stream ---------
+
+SHARD_COUNTS = (2, 4, 8)    # benchmarks/shard.py::SHARD_COUNTS
+THREADS = (1, 2, 4, 8)      # benchmarks/shard.py::THREADS
+ORACLE_PREFIX = 1 << 18     # shard_path: requests held against the host service
+TUNER_PREFIX = 1 << 20      # tuner_path: requests under the online tuner
+SERVE_BATCH = 65_536        # tuner_path: requests an access_many batch
+TUNER_CHECKED = 4           # tuner_path: rounds held against the plain sweep
+
+
+def shard_path(dev, d, u, cap, long_mr, single):
+    """The hash-sharded Clock2Q+ service on the card: ``sharded_replay``
+    of the whole stream ``d`` (dense ids below ``u``) at 2, 4 and 8
+    shards, one ``cache_sim`` launch each, and ``replay_store`` of the
+    stream from an oracleGeneral file, one launch a chunk.  Checks, at
+    tolerance 0: each shard count's merged hits equal one one-lane replay
+    a shard; at 8 shards the first ``ORACLE_PREFIX`` requests equal the
+    host ``ShardedClock2QPlus`` (an independent oracle at a capacity that
+    8 divides); the streamed hits equal the single-shot ``single``, with
+    one ``EV_SNAPSHOT`` row a chunk.  Returns (phase line, launches)."""
+    import tempfile
+
+    from repro_torch.core import torch_engine as te
+    from repro_torch.core.engine import replay
+    from repro_torch.kernels.cache_sim import ops
+    from repro_torch.obs import ObsSink
+    from repro_torch.shardcache import (
+        ShardedClock2QPlus, replay_threaded, shard_of_np,
+    )
+    from repro_torch.traceio import TraceStore, save_trace
+
+    cap8 = cap - cap % 8
+    phase_t0 = time.perf_counter()
+    timer = LaunchTimes(ops)
+    ops.launch_count = 0
+    timer.start()
+    merged, wall = {}, {}
+    for n in SHARD_COUNTS:
+        timer.kind = n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merged[n] = te.sharded_replay("clock2q+", d, cap8, n, universe=u,
+                                      device=dev)
+        wall[n] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream.bin")
+        t0 = time.perf_counter()
+        save_trace(path, d)
+        write_s = time.perf_counter() - t0
+        sink = ObsSink(src="replay")
+        timer.kind = "replay_store"
+        t0 = time.perf_counter()
+        store_hits, _ = te.replay_store("clock2q+", TraceStore(path), cap,
+                                        chunk_size=LONG_CHUNK, obs=sink,
+                                        device=dev)
+        store_s = time.perf_counter() - t0
+    timer.stop()
+    launches = ops.launch_count
+    by_kind = timer.by_kind()
+    require(launches == len(SHARD_COUNTS) + -(-len(d) // LONG_CHUNK),
+            f"shard_path: {launches} cache_sim launches")
+    rows = [e for e in sink.snapshot().events if e["kind"] == "snapshot"]
+    require(store_hits == single and len(rows) == -(-len(d) // LONG_CHUNK)
+            and (rows[-1]["a"], rows[-1]["b"]) == (len(d), single),
+            f"replay_store: {store_hits} hits, {len(rows)} snapshot rows; "
+            f"single shot {single}")
+
+    per_n = []
+    for n in SHARD_COUNTS:
+        sid = shard_of_np(d, n)
+        sizes = np.bincount(sid, minlength=n)
+        for s in range(n):
+            ix = np.nonzero(sid == s)[0]
+            _, h = replay("clock2q+", te.init_state(
+                "clock2q+", cap8 // n, u, device=dev), d[ix])
+            bad = int((h[0].cpu().numpy() != merged[n][ix]).sum())
+            require(bad == 0, f"{n} shards: shard {s}'s lane differs from "
+                              f"its one-lane replay in {bad} requests")
+        mr = 1.0 - float(merged[n].mean())
+        per_n.append(dict(
+            n_shards=n, shard_capacity=cap8 // n, miss_ratio=mr,
+            gap_pp=100.0 * (mr - long_mr),
+            kernel_ms=by_kind[n]["ms"], wall_s=wall[n],
+            requests_per_s=len(d) / wall[n], longest_lane=int(sizes.max()),
+            shortest_lane=int(sizes.min()), per_shard_equal=True))
+
+    prefix = d[:ORACLE_PREFIX]
+    lanes = te.sharded_replay("clock2q+", prefix, cap8, 8, universe=u,
+                              device=dev)
+    t0 = time.perf_counter()
+    host = ShardedClock2QPlus(cap8, n_shards=8).access_many(prefix)
+    host_s = time.perf_counter() - t0
+    bad = int((lanes != host).sum())
+    require(bad == 0, f"8 lanes != the host ShardedClock2QPlus on the "
+                      f"prefix ({bad} requests differ)")
+    threaded = []
+    for t in THREADS:
+        rep = replay_threaded(ShardedClock2QPlus(cap8, n_shards=8), prefix,
+                              n_threads=t)
+        require(rep.n_requests == len(prefix)
+                and (rep.hits == int(host.sum()) if t == 1 else
+                     abs(rep.miss_ratio - (1.0 - host.mean())) < 0.01),
+                f"replay_threaded at {t} threads: {rep}")
+        threaded.append(dict(threads=t, requests_per_s=rep.throughput,
+                             miss_ratio=rep.miss_ratio, seconds=rep.seconds))
+    return dict(
+        phase="shard_path", trace="w01-skewed/meta", requests=len(d),
+        unique=u, capacity=cap8, unsharded_miss_ratio=long_mr,
+        tolerance=0, launches=launches, shards=per_n,
+        oracle=dict(requests=len(prefix), n_shards=8, equal=True,
+                    host_s=host_s, host_requests_per_s=len(prefix) / host_s),
+        threaded=threaded,
+        replay_store=dict(chunk=LONG_CHUNK, launches=by_kind[
+            "replay_store"]["launches"], kernel_ms=by_kind["replay_store"][
+            "ms"], seconds=store_s, write_s=write_s, snapshot_rows=len(rows),
+            equal=True),
+        seconds=time.perf_counter() - phase_t0), launches
+
+
+def tuner_path(dev, d, u, cap, single_h):
+    """The online tuner and ``EngineCache`` on the card.  ``OnlineTuner``
+    with its defaults over the host ``ShardedClock2QPlus`` (8 shards) on
+    the first ``TUNER_PREFIX`` requests of ``d``, fed by ``observe_many``
+    after each ``SERVE_BATCH`` batch: every profiling round one
+    ``cache_sim`` launch, the first ``TUNER_CHECKED`` rounds' estimates
+    equal to the same ``sweep_grid`` call on the CPU (the plain version).
+    Then ``EngineCache`` of clock2q+ and s3fifo serves the whole stream in
+    batches, each equal to one single-shot replay (``single_h`` for
+    clock2q+).  Returns (phase line, launches by kernel)."""
+    from repro_torch.core import torch_engine as te
+    from repro_torch.core.engine import replay
+    from repro_torch.core.engine.host import EngineCache
+    from repro_torch.kernels.cache_sim import ops
+    from repro_torch.kernels.s3fifo_sim import ops as s3ops
+    from repro_torch.shardcache import ShardedClock2QPlus
+    from repro_torch.tuning import OnlineTuner, profiler, sweep_grid
+
+    cap8 = cap - cap % 8
+    prefix = d[:TUNER_PREFIX]
+    batches = [prefix[i:i + SERVE_BATCH]
+               for i in range(0, len(prefix), SERVE_BATCH)]
+    phase_t0 = time.perf_counter()
+    ops.launch_count = s3ops.launch_count = 0
+    svc = ShardedClock2QPlus(cap8, n_shards=8)
+    tuner = OnlineTuner(svc, device=dev)
+    timers = dict(cache_sim=LaunchTimes(ops), s3fifo_sim=LaunchTimes(s3ops))
+    timers["cache_sim"].kind = "round"
+    timers["cache_sim"].start()
+    t0 = time.perf_counter()
+    for b in batches:
+        svc.access_many(b)
+        tuner.observe_many(b)
+    tuned_s = time.perf_counter() - t0
+    timers["cache_sim"].stop()
+    round_ms = timers["cache_sim"].by_kind()["round"]["ms"]
+    rounds = list(tuner.decisions)
+    round_launches = ops.launch_count
+    served = {}
+    for policy, timer in zip(("clock2q+", "s3fifo"), timers.values()):
+        cache = EngineCache(policy, cap, u, device=dev)
+        timer.kind = policy
+        timer.start()
+        hits, ms = [], []
+        for i in range(0, len(d), SERVE_BATCH):
+            t0 = time.perf_counter()
+            hits.append(cache.access_many(d[i:i + SERVE_BATCH]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        timer.stop()
+        served[policy] = (np.concatenate(hits), ms,
+                          timer.by_kind()[policy]["ms"])
+    launches = dict(cache_sim=ops.launch_count,
+                    s3fifo_sim=s3ops.launch_count)
+    n_batches = -(-len(d) // SERVE_BATCH)
+    require(round_launches == len(rounds) > TUNER_CHECKED
+            and launches == dict(cache_sim=len(rounds) + n_batches,
+                                 s3fifo_sim=n_batches),
+            f"tuner_path: {len(rounds)} rounds, launches {launches}")
+
+    for r in rounds[:TUNER_CHECKED]:
+        window = prefix[r.at_access - tuner.history:r.at_access]
+        sampled = profiler.sample_trace(window, r.rate_shift)
+        plain = sweep_grid(sampled, profiler.scaled_configs(
+            r.configs, r.rate_shift), pad_pow2=True, device="cpu")
+        require(sampled.size == r.n_sampled
+                and np.array_equal(plain, r.est_miss_ratios),
+                f"round at {r.at_access}: estimates {r.est_miss_ratios} "
+                f"!= the plain sweep's {plain}")
+    plain_svc = ShardedClock2QPlus(cap8, n_shards=8)
+    for b in batches:
+        plain_svc.access_many(b)
+
+    engine = {}
+    for policy, (hits, ms, kernel_ms) in served.items():
+        if policy == "clock2q+":
+            want = single_h
+        else:
+            _, h = replay(policy, te.init_state(policy, cap, u, device=dev),
+                          d)
+            want = h[0].cpu().numpy()
+        bad = int((hits != want).sum())
+        require(bad == 0, f"EngineCache({policy}) differs from its "
+                          f"single-shot replay in {bad} requests")
+        engine[policy] = dict(
+            batches=len(ms), miss_ratio=1.0 - float(hits.mean()),
+            ms_per_batch_mean=statistics.fmean(ms),
+            ms_per_batch_p50=statistics.median(ms),
+            kernel_ms_per_batch=kernel_ms / len(ms), equal=True)
+    return dict(
+        phase="tuner_path", trace="w01-skewed/meta", capacity=cap8,
+        tuner=dict(
+            requests=len(prefix), n_shards=8, batch=SERVE_BATCH,
+            retune_every=tuner.retune_every, rate_shift=tuner.rate_shift,
+            rounds=len(rounds), launches=round_launches,
+            kernel_ms_per_round=round_ms / len(rounds),
+            rounds_checked=TUNER_CHECKED, tolerance=0,
+            applied=sum(bool(r.applied) for r in rounds),
+            chosen_windows=[r.chosen.window_frac for r in rounds],
+            rate_shifts=sorted({r.rate_shift for r in rounds}),
+            n_sampled=[r.n_sampled for r in rounds],
+            miss_ratio=svc.misses / len(prefix),
+            miss_ratio_without_tuner=plain_svc.misses / len(prefix),
+            window_frac=svc.tuning["window_frac"], seconds=tuned_s),
+        engine_cache=dict(requests=len(d), capacity=cap, batch=SERVE_BATCH,
+                          **engine),
+        launches=launches, seconds=time.perf_counter() - phase_t0), launches
 
 
 def main() -> int:
@@ -2190,6 +2420,13 @@ def main() -> int:
               miss_ratio=1.0 - single / len(d), single_shot_s=single_s,
               chunked_s=chunked_s, chunked_equal=True, trace_gen_s=gen_s))
 
+    # -- shard_path, tuner_path: the same stream, sharded and tuned ------------
+    shard, shard_launches = shard_path(dev, d, u, cap,
+                                       1.0 - single / len(d), single)
+    emit(shard)
+    tuned, tuner_launches = tuner_path(dev, d, u, cap, h[0].cpu().numpy())
+    emit(tuned)
+
     # -- kernel_time: the timed sweeps, median of 3, with their bounds ---------
     sweeps = {}
     for name in TIMED_SWEEPS:
@@ -2242,9 +2479,12 @@ def main() -> int:
         name="cache_sim", route="cuda",
         source="src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu",
         replaces="src/repro/kernels/cache_sim/cache_sim.py:46",
-        launches=launches + cmp["launches"]["cache_sim"],
+        launches=launches + cmp["launches"]["cache_sim"] + shard_launches
+        + tuner_launches["cache_sim"],
         launches_by_path=dict(main_path=launches,
-                              compare_path=cmp["launches"]["cache_sim"]),
+                              compare_path=cmp["launches"]["cache_sim"],
+                              shard_path=shard_launches,
+                              tuner_path=tuner_launches["cache_sim"]),
         max_abs_err=max_abs_err, ms=kt["ms"],
         plain_ms=plain_ms, bound_ms=kt["bound_ms"], bound_by=kt["bound_by"],
         library_ms=None,
@@ -2299,7 +2539,8 @@ def main() -> int:
              kernel_ms_at_plain_shape=scan_check[
                  "kernel_ms_at_plain_shape"]),
         policy_kernel_row("s3fifo_sim", cmp_times, cmp, evp, ("s3fifo",),
-                          "w01-skewed/meta", all_traces),
+                          "w01-skewed/meta", all_traces,
+                          tuner_path=tuner_launches["s3fifo_sim"]),
         policy_kernel_row("simple_sim", cmp_times, cmp, evp,
                           ("fifo", "clock", "lru"), "w01-skewed/meta",
                           all_traces)]})

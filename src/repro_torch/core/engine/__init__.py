@@ -40,6 +40,8 @@ from repro_torch.kernels.simple_sim import ops as simple_ops
 
 State = Dict[str, torch.Tensor]
 
+_FRAC_KNOBS = ("window_frac", "small_frac", "ghost_frac")
+
 
 @dataclasses.dataclass(frozen=True)
 class PolicyEngine:
@@ -77,6 +79,19 @@ class PolicyEngine:
         """Degenerate-mask one-lane state for a single configuration."""
         return self.init_config(self.config(capacity, **kw), universe,
                                 device=device)
+
+    # -- replay ---------------------------------------------------------------
+    def replay(self, state: State, trace) -> Tuple[State, torch.Tensor]:
+        """Replay ``trace`` from ``state`` (advanced in place): one launch
+        of the family's kernel on CUDA."""
+        return replay(self.name, state, trace)
+
+    def replay_chunked(self, chunks, capacity: int, universe: int,
+                       state: Optional[State] = None, **kw):
+        """State-carry replay over an iterable of trace chunks
+        (bit-identical to the single-shot ``replay``)."""
+        return replay_chunked(self.name, chunks, capacity, universe,
+                              state=state, **kw)
 
 
 # -- registry ------------------------------------------------------------------
@@ -322,13 +337,17 @@ def _check_keys(arr: np.ndarray, universe: int) -> None:
 
 
 def replay_chunked(policy: str, chunks, capacity: int, universe: int,
-                   state: Optional[State] = None, device=None, **kw):
+                   state: Optional[State] = None, on_chunk=None,
+                   device=None, **kw):
     """Replay an iterable of key chunks, threading the state across chunk
     boundaries: bit-identical to the single-shot ``replay`` of the
     concatenated trace, with one chunk resident at a time.
 
     Returns ``(hits, n_requests, final_state)``; pass ``state`` back in
-    to continue a stream.  With ``state`` given, it sets the device."""
+    to continue a stream.  With ``state`` given, it sets the device.
+    ``on_chunk(n, hits)`` (running totals) fires after each chunk — the
+    progress hook callers hang telemetry on without this package
+    importing any."""
     universe = int(universe)
     if not (0 < universe <= np.iinfo(np.int32).max):
         raise ValueError(
@@ -347,6 +366,8 @@ def replay_chunked(policy: str, chunks, capacity: int, universe: int,
         counts = eng.replay_fn(st, _as_trace(arr, dev), "counts")
         hits += int(counts.sum())
         n += int(arr.shape[0])
+        if on_chunk is not None:
+            on_chunk(n, hits)
     return hits, n, st
 
 

@@ -2,9 +2,7 @@
 
 The port's own copy of ``repro.core.prodcache`` (``ProdClock2QPlus``,
 ``AccessResult``, ``drive_resize``), with its imports pointed into
-``repro_torch``.  ``ProdClock2QPlus.replay`` is left out: it streams a
-``TraceStore``, which the port does not have yet (ROADMAP.md queue 1,
-item 3).
+``repro_torch``.
 
 Faithful to the vSAN engineering design, adapted from kernel C to a
 host-side Python/NumPy runtime (this structure runs on the *host* CPU of a
@@ -626,6 +624,23 @@ class ProdClock2QPlus:
         if eid == EMPTY:
             eid = self._find_stray(key)
         return EMPTY if eid == EMPTY else int(self.block[eid])
+
+    def replay(self, source, chunk_size: int = 1 << 20) -> int:
+        """Replay a request stream (ndarray, ``repro_torch.traceio.
+        TraceStore``, or any iterable of key chunks) through ``access``;
+        returns the hit count (``hits``/``misses`` counters advance as
+        usual).  The cache is stateful, so chunked streaming is
+        state-carry by construction: any chunk_size is bit-identical to
+        replaying the whole trace in one call, with peak memory bounded
+        by the chunk."""
+        from repro_torch.traceio.store import iter_chunks
+
+        acc = self.access
+        hits = 0
+        for chunk in iter_chunks(source, chunk_size):
+            for k in np.asarray(chunk).tolist():
+                hits += acc(k).hit
+        return hits
 
     @property
     def n_slots(self) -> int:
