@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's four paths on one CUDA card, through the hand-written
+Drives the port's five paths on one CUDA card, through the hand-written
 Hopper kernels, all built from the sources under
 ``src/repro_torch/kernels/*/csrc/`` at first use (one ``nvcc`` each,
 started together):
@@ -24,6 +24,13 @@ started together):
   with the KV pool under Clock2Q+ and a host tier.  Both kernels are
   held against their plain versions at granite's widths, and the decode
   path against a teacher-forced prefill on a 4-layer fp32 cut;
+* the same serving path under chaos: the pool sharded 4 ways with a
+  hot standby a shard (its write-ahead journal on disk), a seeded storm
+  of IO errors, torn writes and delays with a shard loss, and the
+  online tuner, whose rounds and ``cache_mrc`` launch ``cache_sim``;
+  each shard's journal, recovered, and a snapshot of the sharded policy
+  are held to the live bytes, and on the 4-layer fp32 cut the chaos
+  engine's tokens to a fault-free twin's and a teacher-forced prefill;
 * the SSM and hybrid models through the model API (``prefill``, then
   greedy ``decode`` steps): ``falcon-mamba-7b`` and ``zamba2-2.7b`` at
   full width and depth (random bf16 weights), Mamba1's selective scan
@@ -313,7 +320,9 @@ def _pct(xs, q):
 def serve_main(dev):
     """Full-width, full-depth granite-3-8b behind the serving engine;
     returns (phase record, launches per kernel, the run's decode context
-    lengths as 8 octile midpoints)."""
+    lengths as 8 octile midpoints, and what ``chaos_path`` reuses: the
+    model, its params, the tokens per request, the pool's lookups and its
+    host IO operations)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.cache_sim import ops as cops
     from repro_torch.kernels.flash_attention import ops as fops
@@ -386,12 +395,15 @@ def serve_main(dev):
         flows=flows, host_blocks=len(eng.pool.host),
         peak_device_bytes=torch.cuda.max_memory_allocated(dev),
         launches=launches)
+    phase.update(pool_lookups=stats.hits + stats.misses,
+                 host_io_ops=stats.swap_in + stats.swap_out)
     del eng
     torch.cuda.empty_cache()
     phase["profile"] = serve_profile(dev, api, params)
-    del params, api
-    torch.cuda.empty_cache()
-    return phase, launches, med
+    served = dict(api=api, params=params, tokens={c.req_id: c.tokens
+                                                  for c in done},
+                  lookups=phase["pool_lookups"], io_ops=phase["host_io_ops"])
+    return phase, launches, med, served
 
 
 def serve_profile(dev, api, params):
@@ -458,6 +470,31 @@ def profile_summary(prof, wall: float, groups: dict) -> dict:
                      for e in kernels[:8]])
 
 
+def teacher_forced(api, params, reqs, by_id, dev):
+    """Hold each request's generated tokens against a teacher-forced
+    ``forward_prefill`` over its prompt and tokens: (positions compared,
+    mismatches, near ties), a flip with a top-2 margin < ``NEAR_TIE``
+    being a near tie."""
+    compared, mismatches, ties = 0, [], []
+    for r in reqs:
+        gen = by_id[r.req_id].tokens
+        toks = torch.tensor([r.prompt + gen[:-1]], dtype=torch.long,
+                            device=dev)
+        logits, _ = api.prefill(params, toks, full_logits=True)
+        lg = logits[0, len(r.prompt) - 1:].float()
+        top2 = torch.topk(lg, 2, dim=-1)
+        pick = top2.indices[:, 0].tolist()
+        margin = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+        for i, (want, got) in enumerate(zip(pick, gen)):
+            compared += 1
+            if want == got:
+                continue
+            item = dict(req=r.req_id, pos=i, engine=got, prefill=want,
+                        margin=margin[i])
+            (ties if margin[i] < NEAR_TIE else mismatches).append(item)
+    return compared, mismatches, ties
+
+
 def serve_consistency(dev):
     """The decode kernel's path against the prefill kernel's path on the
     whole model: granite-3-8b at full width in fp32, depth cut to 4
@@ -484,23 +521,8 @@ def serve_consistency(dev):
     require(all(by_id[r.req_id].status == "completed" and
                 len(by_id[r.req_id].tokens) == MAX_NEW for r in reqs),
             "serve_consistency: a request did not complete")
-    compared, mismatches, ties = 0, [], []
-    for r in reqs:
-        gen = by_id[r.req_id].tokens
-        toks = torch.tensor([r.prompt + gen[:-1]], dtype=torch.long,
-                            device=dev)
-        logits, _ = api.prefill(params, toks, full_logits=True)
-        lg = logits[0, len(r.prompt) - 1:].float()
-        top2 = torch.topk(lg, 2, dim=-1)
-        pick = top2.indices[:, 0].tolist()
-        margin = (top2.values[:, 0] - top2.values[:, 1]).tolist()
-        for i, (want, got) in enumerate(zip(pick, gen)):
-            compared += 1
-            if want == got:
-                continue
-            item = dict(req=r.req_id, pos=i, engine=got, prefill=want,
-                        margin=margin[i])
-            (ties if margin[i] < NEAR_TIE else mismatches).append(item)
+    compared, mismatches, ties = teacher_forced(api, params, reqs, by_id,
+                                                dev)
     require(not mismatches, f"serve_consistency: decode-path tokens != "
                             f"teacher-forced prefill tokens: {mismatches}")
     stats, _ = eng.stats
@@ -513,6 +535,510 @@ def serve_consistency(dev):
                seconds=time.perf_counter() - t0)
     del eng, params, api
     torch.cuda.empty_cache()
+    return rec
+
+
+# -- the chaos path: faults, snapshots, journal and replicas under serving ------
+
+CHAOS_SHARDS = 4
+CHAOS_SEED = 20
+CHAOS_RETRY = 2             # io_retry: RetryPolicy(max_retries=2)
+CHAOS_RATE_SHIFT = 3        # the tuner samples 1/8 of its window's keys
+CHAOS_MIN_SAMPLES = 64      # ... backing off toward 1/1 below 64 samples
+CHAOS_MRC_SHIFT = 2         # cache_mrc samples 1/4 of the window's keys
+CHAOS_HBM = 640             # chaos_consistency's pool: blocks swap to host
+CHAOS_GHOST_EVERY = 64      # chaos_rewarm: a ghost journal every 64 lookups
+
+
+def chaos_knobs(F, k: int, lookups: int, journal_dir):
+    """The engine knobs of both chaos phases: 4 shards with hot standbys
+    journaled under ``journal_dir``, a loss of shard 1 at host IO op
+    ``k`` in a storm of IO errors, torn writes and delays, and the online
+    tuner profiling every quarter of ``lookups`` pool lookups over a
+    history of all of them (a prefix block comes back a few hundred
+    lookups later, through the Ghost ring: a shorter window sees only
+    misses)."""
+    return dict(
+        n_shards=CHAOS_SHARDS, replicate=True, journal_dir=journal_dir,
+        faults=F.FaultPlan(CHAOS_SEED, [
+            F.FaultSpec(F.SHARD_LOSS, at=(k,), shard=1),
+            F.FaultSpec(F.IO_ERROR, prob=0.2),
+            F.FaultSpec(F.PARTIAL_WRITE, prob=0.05),
+            F.FaultSpec(F.IO_DELAY, prob=0.1, ticks=3)]),
+        io_retry=F.RetryPolicy(max_retries=CHAOS_RETRY),
+        autotune=dict(retune_every=max(1, lookups // 4), history=lookups,
+                      rate_shift=CHAOS_RATE_SHIFT,
+                      min_samples=CHAOS_MIN_SAMPLES))
+
+
+def planned_lookups(reqs, bs: int) -> int:
+    """Pool lookups serving ``reqs`` to completion makes: one a block of
+    KV each request writes (prompt and every decoded token but the
+    last), whatever the policy or the faults."""
+    return sum(-(-(len(r.prompt) + r.max_new - 1) // bs) for r in reqs)
+
+
+def event_ms(fn):
+    """(fn(), ms between CUDA events recorded around it); ``fn`` ends in
+    a read of its device result, so the span covers its device work."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+class ChaosTimes:
+    """What a chaos engine does beside serving, timed: every journal
+    append and base snapshot (host clock, over every ``ShardJournal``,
+    until ``stop``), each tuner round and each shard failover (CUDA
+    events); and the block keys the tuner observed (``keys``)."""
+
+    def __init__(self, fj):
+        self.fj = fj
+        self.orig = (fj.ShardJournal.append, fj.ShardJournal._write_base)
+        self.journal_s, self.appends, self.bases = 0.0, 0, 0
+        self.rounds_ms, self.failovers, self.keys = [], [], []
+        times = self
+
+        def timed(fn, count):
+            def call(jr, *a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(jr, *a, **kw)
+                finally:
+                    times.journal_s += time.perf_counter() - t0
+                    setattr(times, count, getattr(times, count) + 1)
+            return call
+
+        fj.ShardJournal.append = timed(self.orig[0], "appends")
+        fj.ShardJournal._write_base = timed(self.orig[1], "bases")
+
+    def stop(self) -> None:
+        """Put the journal's own methods back."""
+        self.fj.ShardJournal.append, self.fj.ShardJournal._write_base = \
+            self.orig
+
+    def watch(self, pool, mgr) -> None:
+        """Time ``pool``'s tuner rounds and failovers, record the keys
+        its tuner observes and, at each failover, how many of the live
+        sequences' blocks (``mgr``'s) the lost shard held: in all, with a
+        host copy older than the block, and with none."""
+        observe, retune = pool.tuner.observe, pool.tuner.retune_now
+        failover = pool.failover_shard
+
+        def recorded(key):
+            self.keys.append(key)
+            return observe(key)
+
+        def timed_retune():
+            out, ms = event_ms(retune)
+            self.rounds_ms.append(ms)
+            return out
+
+        def timed_failover(sid):
+            rep = pool._replicator
+            kind = "promote" if rep is not None and rep.should_promote(sid) \
+                else "rewarm"
+            lag = pool.replication_lag(sid)
+            lost = set(pool.policy.shards[sid].resident_keys())
+            live = {k for st in mgr.seqs.values() for k in st.block_keys
+                    if k in lost}
+            out, ms = event_ms(lambda: failover(sid))
+            self.failovers.append(dict(
+                shard=sid, kind=kind, ms=ms, lag_at_loss=lag,
+                result=list(out), live_blocks=len(live),
+                live_stale=None if pool._stale is None
+                else len(live & pool._stale),
+                live_no_host_copy=len(live - set(pool.host))))
+            return out
+
+        pool.tuner.observe = recorded
+        pool.tuner.retune_now = timed_retune
+        pool.failover_shard = timed_failover
+
+
+def tuner_checks(tuner, keys, phase: str, rounds=None, mrc=None,
+                 mrc_shift=None) -> dict:
+    """Hold each of ``tuner``'s ``rounds`` (all of its decisions by
+    default; each a ``cache_sim`` sweep on the card) to the plain sweep
+    on the CPU over the same window of ``keys``, the keys it observed,
+    and ``mrc`` (a pool's ``estimate_mrc``, one more sweep) to
+    ``profiler.estimate_sweep`` on the CPU, all exactly.  The plain
+    estimates must see hits somewhere, so that a kernel counting none
+    would fail."""
+    from repro_torch.tuning import profiler, sweep_grid
+
+    keys = np.asarray(keys, dtype=np.int64)
+    require(keys.size == tuner.n_observed,
+            f"{phase}: {keys.size} keys recorded, the tuner saw "
+            f"{tuner.n_observed}")
+    rounds = list(tuner.decisions) if rounds is None else rounds
+    below_one = False
+    for r in rounds:
+        window = keys[max(0, r.at_access - tuner.history):r.at_access]
+        sampled = profiler.sample_trace(window, r.rate_shift)
+        plain = sweep_grid(sampled, profiler.scaled_configs(
+            r.configs, r.rate_shift), pad_pow2=True, device="cpu")
+        require(sampled.size == r.n_sampled
+                and np.array_equal(plain, r.est_miss_ratios),
+                f"{phase}: tuner round at {r.at_access}: estimates "
+                f"{r.est_miss_ratios} != the plain sweep's {plain}")
+        below_one |= bool((plain < 1.0).any())
+    out = dict(tuner_history=tuner.history, tuner_estimates=[
+        dict(at=r.at_access, rate_shift=r.rate_shift, sampled=r.n_sampled,
+             est_miss_ratios=[float(x) for x in r.est_miss_ratios])
+        for r in rounds])
+    if mrc is not None:
+        live = tuner._live_config()
+        caps = [int(c) for c in mrc]
+        plain = profiler.estimate_sweep(
+            tuner.recent(), [dataclasses.replace(live, capacity=c)
+                             for c in caps], mrc_shift, device="cpu")
+        got = np.array([mrc[c] for c in caps])
+        require(np.array_equal(got, plain),
+                f"{phase}: cache_mrc {got} != the plain sweep's {plain}")
+        below_one |= bool((plain < 1.0).any())
+    require(below_one, f"{phase}: every plain estimate is 1.0: no hit for "
+                       f"the kernel to count")
+    return out
+
+
+def chaos_checks(F, pool, jdir: str, phase: str) -> dict:
+    """Close the pool's journals, then hold each shard's on-disk journal,
+    recovered, to the live shard byte for byte, and a
+    ``write_snapshot`` / ``read_snapshot`` / ``policy_from_snapshot``
+    round trip of the sharded policy to the same bytes."""
+    for jr in pool._replicator.journals:
+        jr.close()
+    journal_bytes = sum(f.stat().st_size
+                        for f in pathlib.Path(jdir).rglob("*.c2q*"))
+    recovered = []
+    for i, sh in enumerate(pool.policy.shards):
+        t0 = time.perf_counter()
+        res = F.recover(os.path.join(jdir, f"shard{i}"))
+        s = time.perf_counter() - t0
+        live = F.pack(F.state_dict(sh))
+        require(F.pack(F.state_dict(res.policy)) == live,
+                f"{phase}: shard {i}'s journal (epoch {res.epoch}, lsn "
+                f"{res.lsn}) recovers to other bytes than the live shard")
+        recovered.append(dict(shard=i, epoch=res.epoch, lsn=res.lsn,
+                              applied=res.applied,
+                              truncated_bytes=res.truncated_bytes,
+                              state_bytes=len(live), recover_s=s))
+    path = os.path.join(jdir, "policy.c2qsnap")
+    t0 = time.perf_counter()
+    buf = F.write_snapshot(path, pool.policy)
+    d = F.read_snapshot(path)
+    for i, sh in enumerate(pool.policy.shards):
+        sub = {"meta": d["meta"][f"s{i}"],
+               "arrays": {n[len(f"s{i}/"):]: a for n, a in d["arrays"].items()
+                          if n.startswith(f"s{i}/")}}
+        require(F.pack(F.state_dict(F.policy_from_snapshot(sub))) ==
+                F.pack(F.state_dict(sh)),
+                f"{phase}: shard {i} restored from the snapshot packs to "
+                f"other bytes")
+    F.load_state_dict(pool.policy, d)
+    require(F.pack(d) == buf and F.pack(F.state_dict(pool.policy)) == buf,
+            f"{phase}: the sharded snapshot does not round-trip")
+    return dict(journal_bytes=journal_bytes, recovered=recovered,
+                snapshot_bytes=len(buf),
+                snapshot_round_trip_s=time.perf_counter() - t0)
+
+
+def chaos_report(pool, times: ChaosTimes, mrc_ms=None) -> dict:
+    """The pool's stats, fault counters, degraded transitions,
+    replication lag, failovers, journal and tuner times."""
+    snap = pool.obs_snapshot()
+    stats = pool.stats
+    io = pool._io
+    return dict(
+        pool=dataclasses.asdict(stats), hit_ratio=stats.hit_ratio,
+        flows=dict(pool.policy.flows), host_blocks=len(pool.host),
+        quarantined=len(pool._corrupt),
+        injected=io.plan.injected, io_ops=io.plan.op_seq,
+        io_clock_ticks=io.clock.now,
+        faults={k: v for k, v in snap.counters.items() if k.startswith((
+            "io_faults_injected_total", "io_retries", "io_errors", "io_shed",
+            "pool_torn", "pool_corrupt", "pool_lost"))},
+        degraded_now=pool.degraded, breaker_trips=io.breaker.trips,
+        degraded_events=[e["a"] for e in snap.events
+                         if e["kind"] == "degraded"],
+        replication_lag=[pool.replication_lag(i)
+                         for i in range(pool.policy.n_shards)],
+        replica_polls=pool._replicator.clock.now
+        if pool._replicator is not None else None,
+        failovers=times.failovers,
+        journal_appends=times.appends, journal_base_writes=times.bases,
+        journal_s=times.journal_s,
+        tuner_rounds=int(pool.tuner._c_rounds.value),
+        tuner_retunes=int(pool.tuner._c_retunes.value),
+        tuner_round_ms=times.rounds_ms, cache_mrc_ms=mrc_ms,
+        window_frac=[sh._window_frac for sh in pool.policy.shards])
+
+
+def chaos_path(dev, served):
+    """serve_main's model and 32 requests again, behind an engine with
+    every pool knob armed (``chaos_knobs``: the shard loss at half of
+    serve_main's host IO operations, the tuner profiling every quarter of
+    its lookups); then ``cache_mrc`` once, each shard's journal recovered
+    and the sharded policy through a snapshot file.  Gates: every request
+    completes with tokens in the vocabulary, IO errors and torn writes
+    were injected, a failover ran, ``cache_sim`` launched once a tuner
+    round plus once for ``cache_mrc``, both attention kernels launched,
+    the journals and the snapshot give the live bytes back.  Reported:
+    the requests whose tokens equal serve_main's, and at each first
+    divergence the top-2 margin of a teacher-forced prefill."""
+    import shutil
+    import tempfile
+    from repro_torch import faults as F
+    from repro_torch.faults import journal as fj
+    from repro_torch.kernels.cache_sim import ops as cops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedConfig
+
+    t0 = time.perf_counter()
+    api, params = served["api"], served["params"]
+    cfg = api.cfg
+    k = served["io_ops"] // 2
+    jdir = tempfile.mkdtemp(prefix="chaos-journal-")
+    times = ChaosTimes(fj)
+    try:
+        knobs = chaos_knobs(F, k, served["lookups"], jdir)
+        eng = ServingEngine(api, params, device=dev, **SERVE, **knobs)
+        pool = eng.pool
+        times.watch(pool, eng.mgr)
+        rec = _instrument(eng)
+        reqs = make_requests(32, seed=0, vocab=cfg.vocab)
+        fops.launch_count = pops.launch_count = cops.launch_count = 0
+        t1 = time.perf_counter()
+        outs = eng.run(reqs, config=SchedConfig(
+            max_batch=SERVE["max_batch"], token_budget=TOKEN_BUDGET))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        mrc, mrc_ms = event_ms(lambda: eng.cache_mrc(
+            rate_shift=CHAOS_MRC_SHIFT))
+        launches = dict(flash_attention=fops.launch_count,
+                        paged_attention=pops.launch_count,
+                        cache_sim=cops.launch_count)
+        times.stop()
+        report = chaos_report(pool, times, mrc_ms)
+        by_id = {c.req_id: c for c in outs}
+        done = [c for c in outs if c.status == "completed"]
+        require(len(done) == 32 and all(len(c.tokens) == MAX_NEW and all(
+            0 <= t < cfg.vocab for t in c.tokens) for c in done),
+            f"chaos_path: {len(done)} of 32 completed "
+            f"({[(c.req_id, c.status, len(c.tokens)) for c in outs]})")
+        kinds = report["faults"]
+        for kind in ("io_error", "partial_write"):
+            require(kinds.get(f'io_faults_injected_total{{kind="{kind}"}}',
+                              0) > 0, f"chaos_path: no {kind} injected")
+        require(report["failovers"], "chaos_path: the shard loss at IO op "
+                                     f"{k} never failed a shard over")
+        rounds = report["tuner_rounds"]
+        require(rounds >= 3 and launches["cache_sim"] == rounds + 1,
+                f"chaos_path: cache_sim launches {launches['cache_sim']}, "
+                f"tuner rounds {rounds} (want >= 3, and one launch a round "
+                f"plus cache_mrc's)")
+        require(launches["flash_attention"] > 0 and
+                launches["paged_attention"] > 0,
+                f"chaos_path: an attention kernel never launched {launches}")
+        report.update(tuner_checks(pool.tuner, times.keys, "chaos_path",
+                                   mrc=mrc, mrc_shift=CHAOS_MRC_SHIFT))
+        report.update(chaos_checks(F, pool, jdir, "chaos_path"))
+        same, divergences = [], []
+        for r in reqs:
+            want, got = served["tokens"][r.req_id], by_id[r.req_id].tokens
+            if want == got:
+                same.append(r.req_id)
+                continue
+            i = next(j for j in range(MAX_NEW) if want[j] != got[j])
+            toks = torch.tensor([r.prompt + want[:i]], dtype=torch.long,
+                                device=dev)
+            logits, _ = api.prefill(params, toks, full_logits=True)
+            top2 = torch.topk(logits[0, -1].float(), 2)
+            divergences.append(dict(
+                req=r.req_id, pos=i, serve_main=want[i], chaos=got[i],
+                prefill=int(top2.indices[0]),
+                margin=float(top2.values[0] - top2.values[1])))
+        out_tokens = sum(len(c.tokens) for c in done)
+        phase = dict(
+            phase="chaos_path", model=cfg.name, n_layers=cfg.n_layers,
+            dtype=cfg.dtype, engine=SERVE, requests=32,
+            knobs=dict(n_shards=CHAOS_SHARDS, replicate=True,
+                       journal_dir="tempfile.mkdtemp()", seed=CHAOS_SEED,
+                       shard_loss_at=k, specs=[
+                           dict(kind=F.FAULT_NAMES[sp.kind], prob=sp.prob,
+                                at=list(sp.at), ticks=sp.ticks,
+                                shard=sp.shard)
+                           for sp in knobs["faults"].specs],
+                       io_retry=dataclasses.asdict(knobs["io_retry"]),
+                       autotune=knobs["autotune"]),
+            serve_main_lookups=served["lookups"],
+            serve_main_io_ops=served["io_ops"],
+            completed=len(done), wall_s=wall,
+            output_tokens_per_s=out_tokens / wall,
+            decode_step_ms_p50=_pct(rec["decode_s"], 50),
+            decode_step_ms_p99=_pct(rec["decode_s"], 99),
+            decode_steps=len(rec["decode_s"]),
+            prefill_ms_p50=_pct(rec["prefill_s"], 50),
+            tokens_equal_serve_main=len(same),
+            first_divergences=divergences,
+            cache_mrc={str(c): v for c, v in mrc.items()},
+            launches=launches, **report,
+            seconds=time.perf_counter() - t0)
+    finally:
+        times.stop()
+        shutil.rmtree(jdir, ignore_errors=True)
+    del eng
+    torch.cuda.empty_cache()
+    return phase, launches
+
+
+def chaos_consistency(dev):
+    """The exact gate of the chaos path, on serve_consistency's cut
+    (granite-3-8b at full width in fp32, 4 layers, 8 requests) and a
+    pool of ``CHAOS_HBM`` blocks, small enough that blocks swap: a
+    fault-free twin (the same knobs with ``faults=None``,
+    ``replicate=False``) serves first, then the chaos engine with the
+    shard loss at half the twin's host IO operations.  Tokens must be
+    equal request for request, and every token must match a
+    teacher-forced prefill, near ties excepted and reported; the tuner's
+    rounds must equal the plain sweep's.  Then ``chaos_rewarm``: the
+    same storm with no standby, reported under ``rewarm``."""
+    import shutil
+    import tempfile
+    from repro_torch import faults as F
+    from repro_torch.configs import get_config
+    from repro_torch.faults import journal as fj
+    from repro_torch.models.model import build
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedConfig
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              n_layers=CONSISTENCY_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    reqs = make_requests(8, seed=1, vocab=cfg.vocab)
+    serve = dict(SERVE, hbm_blocks=CHAOS_HBM)
+    sched = SchedConfig(max_batch=SERVE["max_batch"],
+                        token_budget=TOKEN_BUDGET)
+    lookups = planned_lookups(reqs, serve["block_size"])
+    twin_knobs = dict(chaos_knobs(F, 0, lookups, None), faults=None,
+                      io_retry=None, replicate=False)
+    twin = ServingEngine(api, params, device=dev, **serve, **twin_knobs)
+    twin_out = {c.req_id: c for c in twin.run(reqs, config=sched)}
+    twin_stats = twin.pool.stats
+    require(twin_stats.hits + twin_stats.misses == lookups,
+            f"chaos_consistency: the twin made "
+            f"{twin_stats.hits + twin_stats.misses} lookups, {lookups} "
+            f"planned")
+    require(twin_stats.swap_out > 0 and twin_stats.swap_in > 0,
+            f"chaos_consistency: {CHAOS_HBM} blocks swap nothing "
+            f"({twin_stats})")
+    k = (twin_stats.swap_in + twin_stats.swap_out) // 2
+    del twin
+    jdir = tempfile.mkdtemp(prefix="chaos-journal-")
+    times = ChaosTimes(fj)
+    try:
+        eng = ServingEngine(api, params, device=dev, **serve,
+                            **chaos_knobs(F, k, lookups, jdir))
+        times.watch(eng.pool, eng.mgr)
+        by_id = {c.req_id: c for c in eng.run(reqs, config=sched)}
+        times.stop()
+        report = chaos_report(eng.pool, times)
+        report.update(tuner_checks(eng.pool.tuner, times.keys,
+                                   "chaos_consistency"))
+        require(all(by_id[r.req_id].status == "completed" and
+                    len(by_id[r.req_id].tokens) == MAX_NEW for r in reqs),
+                "chaos_consistency: a request did not complete")
+        require(report["failovers"], "chaos_consistency: the shard loss at "
+                                     f"IO op {k} never failed a shard over")
+        differ = [r.req_id for r in reqs
+                  if by_id[r.req_id].tokens != twin_out[r.req_id].tokens]
+        require(not differ, f"chaos_consistency: requests {differ} give "
+                            f"other tokens than the fault-free twin")
+        compared, mismatches, ties = teacher_forced(api, params, reqs, by_id,
+                                                    dev)
+        require(not mismatches, f"chaos_consistency: tokens != teacher-"
+                                f"forced prefill tokens: {mismatches}")
+        report.update(chaos_checks(F, eng.pool, jdir, "chaos_consistency"))
+    finally:
+        times.stop()
+        shutil.rmtree(jdir, ignore_errors=True)
+    del eng
+    rewarm = chaos_rewarm(api, params, reqs, twin_out, dict(
+        chaos_knobs(F, k, lookups, None), replicate=False), serve, sched,
+        dev)
+    rec = dict(phase="chaos_consistency", model=cfg.name, dtype=cfg.dtype,
+               reduced=[f"n_layers 40 -> {CONSISTENCY_LAYERS}"],
+               hbm_blocks=CHAOS_HBM, requests=len(reqs), lookups=lookups,
+               twin_pool=dataclasses.asdict(twin_stats), shard_loss_at=k,
+               tokens_equal_twin=len(reqs), positions_compared=compared,
+               mismatches=0, near_ties=ties, near_tie_margin=NEAR_TIE,
+               **report, rewarm=rewarm, seconds=time.perf_counter() - t0)
+    del params, api
+    torch.cuda.empty_cache()
+    return rec
+
+
+def chaos_rewarm(api, params, reqs, twin_out, knobs, serve, sched, dev):
+    """The chaos engine of ``chaos_consistency`` with no standby
+    (``replicate=False``): the shard loss rebuilds shard 1 by the ghost
+    rewarm under live sequences, from a ghost journal captured every
+    ``CHAOS_GHOST_EVERY`` lookups (the engine keeps the pool's default
+    of 1,024, more than this cut makes).  Gates: every request
+    completes with tokens in the vocabulary, the failover was a rewarm
+    that readmitted residents.  Reported, not gated: the requests whose tokens equal the
+    fault-free twin's, the first divergences, and the teacher-forced
+    mismatches.  The rewarm gives readmitted keys new slots while the
+    live sequences' block tables keep the old ones, as the reference's
+    does, so tokens may leave the twin's (ROADMAP.md queue 3)."""
+    from repro_torch.faults import journal as fj
+    from repro_torch.serving.engine import ServingEngine
+
+    times = ChaosTimes(fj)
+    try:
+        eng = ServingEngine(api, params, device=dev, **serve, **knobs)
+        eng.pool.journal_every = CHAOS_GHOST_EVERY
+        times.watch(eng.pool, eng.mgr)
+        by_id = {c.req_id: c for c in eng.run(reqs, config=sched)}
+    finally:
+        times.stop()
+    vocab = api.cfg.vocab
+    require(all(by_id[r.req_id].status == "completed" and
+                len(by_id[r.req_id].tokens) == MAX_NEW and
+                all(0 <= t < vocab for t in by_id[r.req_id].tokens)
+                for r in reqs),
+            "chaos_rewarm: a request did not complete")
+    require([f["kind"] for f in times.failovers] == ["rewarm"] and
+            times.failovers[0]["result"][0] > 0,
+            f"chaos_rewarm: failovers {times.failovers}, want one rewarm "
+            f"that readmits residents")
+    differ = []
+    for r in reqs:
+        want, got = twin_out[r.req_id].tokens, by_id[r.req_id].tokens
+        if want != got:
+            i = next(j for j in range(MAX_NEW) if want[j] != got[j])
+            differ.append(dict(req=r.req_id, pos=i, twin=want[i],
+                               rewarm=got[i]))
+    compared, mismatches, ties = teacher_forced(api, params, reqs, by_id,
+                                                dev)
+    stats = eng.pool.stats
+    rec = dict(journal_every=CHAOS_GHOST_EVERY,
+               pool=dataclasses.asdict(stats),
+               injected=eng.pool._io.plan.injected,
+               failovers=times.failovers,
+               tokens_equal_twin=len(reqs) - len(differ),
+               first_divergences=differ, positions_compared=compared,
+               mismatches=len(mismatches), near_ties=ties)
+    del eng
     return rec
 
 
@@ -2064,7 +2590,7 @@ def tuner_path(dev, d, u, cap, single_h):
     from repro_torch.kernels.cache_sim import ops
     from repro_torch.kernels.s3fifo_sim import ops as s3ops
     from repro_torch.shardcache import ShardedClock2QPlus
-    from repro_torch.tuning import OnlineTuner, profiler, sweep_grid
+    from repro_torch.tuning import OnlineTuner
 
     cap8 = cap - cap % 8
     prefix = d[:TUNER_PREFIX]
@@ -2107,15 +2633,7 @@ def tuner_path(dev, d, u, cap, single_h):
                                  s3fifo_sim=n_batches),
             f"tuner_path: {len(rounds)} rounds, launches {launches}")
 
-    for r in rounds[:TUNER_CHECKED]:
-        window = prefix[r.at_access - tuner.history:r.at_access]
-        sampled = profiler.sample_trace(window, r.rate_shift)
-        plain = sweep_grid(sampled, profiler.scaled_configs(
-            r.configs, r.rate_shift), pad_pow2=True, device="cpu")
-        require(sampled.size == r.n_sampled
-                and np.array_equal(plain, r.est_miss_ratios),
-                f"round at {r.at_access}: estimates {r.est_miss_ratios} "
-                f"!= the plain sweep's {plain}")
+    tuner_checks(tuner, prefix, "tuner_path", rounds[:TUNER_CHECKED])
     plain_svc = ShardedClock2QPlus(cap8, n_shards=8)
     for b in batches:
         plain_svc.access_many(b)
@@ -2445,9 +2963,14 @@ def main() -> int:
     # -- the serving path: kernels, full model, consistency, kernel times ------
     check = attn_kernels_vs_plain(dev)
     emit(check)
-    serve, serve_launches, med_lengths = serve_main(dev)
+    serve, serve_launches, med_lengths, served = serve_main(dev)
     emit(serve)
+    chaos, chaos_launches = chaos_path(dev, served)
+    emit(chaos)
+    del served
+    torch.cuda.empty_cache()
     emit(serve_consistency(dev))
+    emit(chaos_consistency(dev))
     timing = attn_kernel_time(dev, med_lengths)
     emit(timing)
     pt, ft, fh = timing["paged"], timing["flash"], timing["flash_hybrid"]
@@ -2480,11 +3003,12 @@ def main() -> int:
         source="src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu",
         replaces="src/repro/kernels/cache_sim/cache_sim.py:46",
         launches=launches + cmp["launches"]["cache_sim"] + shard_launches
-        + tuner_launches["cache_sim"],
+        + tuner_launches["cache_sim"] + chaos_launches["cache_sim"],
         launches_by_path=dict(main_path=launches,
                               compare_path=cmp["launches"]["cache_sim"],
                               shard_path=shard_launches,
-                              tuner_path=tuner_launches["cache_sim"]),
+                              tuner_path=tuner_launches["cache_sim"],
+                              chaos_path=chaos_launches["cache_sim"]),
         max_abs_err=max_abs_err, ms=kt["ms"],
         plain_ms=plain_ms, bound_ms=kt["bound_ms"], bound_by=kt["bound_by"],
         library_ms=None,
@@ -2499,7 +3023,11 @@ def main() -> int:
              source="src/repro_torch/kernels/paged_attention/csrc/"
                     "paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/paged_attention.py:30",
-             launches=serve_launches["paged_attention"],
+             launches=serve_launches["paged_attention"]
+             + chaos_launches["paged_attention"],
+             launches_by_path=dict(
+                 serve_main=serve_launches["paged_attention"],
+                 chaos_path=chaos_launches["paged_attention"]),
              max_abs_err=check["max_abs_err"]["paged"], ms=pt["ms"],
              plain_ms=check["paged_plain_ms"], bound_ms=pt["bound_ms"],
              bound_by=pt["bound_by"], library_ms=pt["library_ms"],
@@ -2511,9 +3039,11 @@ def main() -> int:
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:25",
              launches=serve_launches["flash_attention"]
+             + chaos_launches["flash_attention"]
              + hyb_launches["flash_attention"],
              launches_by_path=dict(
                  serve_main=serve_launches["flash_attention"],
+                 chaos_path=chaos_launches["flash_attention"],
                  hybrid_main=hyb_launches["flash_attention"]),
              max_abs_err=max(check["max_abs_err"]["flash"],
                              hyb_check["max_abs_err"]),

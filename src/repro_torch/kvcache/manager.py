@@ -85,7 +85,9 @@ class PagedKVManager:
     # -- decode append ------------------------------------------------------------
     def slot_for_pos(self, seq_id: int, pos: int) -> Tuple[int, int]:
         """(slot, offset) where the KV of the token at ``pos`` goes;
-        allocates a new tail block on a block boundary."""
+        allocates a new tail block on a block boundary, and tells the
+        pool that the block is written in place (``note_write``: a host
+        copy taken before is now older than the block)."""
         st = self.seqs[seq_id]
         while pos // self.bs >= len(st.slots):
             key = self._next_handle
@@ -98,6 +100,7 @@ class PagedKVManager:
             self.pool.policy.set_dirty(key)
             st.block_keys.append(key)
             st.slots.append(slot)
+        self.pool.note_write(st.block_keys[pos // self.bs])
         return st.slots[pos // self.bs], pos % self.bs
 
     def block_table(self, seq_id: int, max_blocks: int) -> np.ndarray:

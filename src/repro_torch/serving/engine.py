@@ -17,8 +17,10 @@ reference the scheduler's greedy tokens are held against.
 Under device-memory pressure the Clock2Q+ policy evicts cold blocks to
 the host tier; dirty (device-only) blocks are flushed by the watermark
 flusher before they become evictable, exactly as §4.1.3 prescribes.
-The sharding, fault-injection, replication and autotuning knobs of the
-reference engine are not taken yet (ROADMAP.md queue 1).
+The reference's pool knobs pass through to the ``BlockPool``: sharding
+(``n_shards``, ``rebalance_headroom``), fault injection (``faults``,
+``io_retry``), hot-standby replication (``replicate``, ``journal_dir``)
+and the online tuner (``autotune``; ``cache_mrc`` is its what-if MRC).
 """
 
 from __future__ import annotations
@@ -72,17 +74,35 @@ class ServingEngine:
 
     def __init__(self, api: ModelAPI, params, *, block_size: int = 16,
                  hbm_blocks: int = 64, max_batch: int = 8,
-                 max_blocks_per_seq: int = 64, max_hbm_blocks: int = 0,
-                 obs=None, device=None):
+                 max_blocks_per_seq: int = 64, n_shards: int = 0,
+                 max_hbm_blocks: int = 0, rebalance_headroom: float = 1.0,
+                 autotune=False, faults=None, io_retry=None,
+                 replicate: bool = False, journal_dir=None, obs=None,
+                 device=None):
         if api.cfg.family != "dense":
             raise NotImplementedError(
                 "the port's paged serving runs the dense family only")
         self.api = api
         self.cfg = api.cfg
         self.params = params
+        # rebalance_headroom > 1 (or max_hbm_blocks slack) is what lets
+        # the sharded policy move capacity between shards, at the cost
+        # of preallocating that many more device blocks.  autotune=
+        # True/dict runs the OnlineTuner over the block-key stream.
+        # faults= threads a FaultPlan through the pool's host-IO swap
+        # path; under sustained IO failure the pool sheds to
+        # read-through and the engine keeps answering (misses refill
+        # from prefill).  replicate= arms per-shard write-ahead
+        # journaling + hot-standby replication (journal_dir=None keeps
+        # it in memory): shard loss then promotes the standby instead of
+        # cold-rewarming.
         self.pool = BlockPool(api.cfg, hbm_blocks, block_size,
-                              dtype=L.dtype_of(api.cfg),
-                              max_hbm_blocks=max_hbm_blocks, device=device)
+                              dtype=L.dtype_of(api.cfg), n_shards=n_shards,
+                              max_hbm_blocks=max_hbm_blocks,
+                              rebalance_headroom=rebalance_headroom,
+                              autotune=autotune, faults=faults,
+                              io_retry=io_retry, replicate=replicate,
+                              journal_dir=journal_dir, device=device)
         self.device = self.pool.device
         self.mgr = PagedKVManager(api.cfg, self.pool)
         self.max_batch = max_batch
@@ -264,9 +284,15 @@ class ServingEngine:
             self._decode_step(sorted(active))
         return done
 
+    def cache_mrc(self, capacities=None, **kw):
+        """What-if MRC of the KV block pool at alternative device budgets
+        (requires ``autotune=``) — see ``BlockPool.estimate_mrc``."""
+        return self.pool.estimate_mrc(capacities, **kw)
+
     def obs_snapshot(self) -> "obs_mod.Snapshot":
         """One merged snapshot of the whole serving stack: engine
-        latencies/queue depths + pool swaps + policy hit/flow counters."""
+        latencies/queue depths + pool swaps + policy hit/flow counters
+        (+ tuner, when autotuning)."""
         return obs_mod.merge([self.obs.snapshot(), self.pool.obs_snapshot()])
 
     @property
@@ -276,7 +302,8 @@ class ServingEngine:
 
     @property
     def degraded(self) -> bool:
-        """True while the pool serves read-through; always False here."""
+        """True while the pool serves read-through (host IO shed by the
+        circuit breaker under sustained injected/real failure)."""
         return self.pool.degraded
 
 

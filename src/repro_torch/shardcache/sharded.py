@@ -288,7 +288,7 @@ class ShardedClock2QPlus:
                      hits=s.hits, misses=s.misses)
                 for i, s in enumerate(self.shards)]
 
-    # -- shard failover ---------------------------------------------------------------
+    # -- shard failover (repro_torch.faults.recovery) --------------------------------
     def lose_shard(self, sid: int) -> "ProdClock2QPlus":
         """Simulate crash-loss of shard ``sid``: its entire state (resident
         entries, ghost ring, counters, pending resize) vanishes and a fresh
@@ -303,8 +303,8 @@ class ShardedClock2QPlus:
         lost.  Returns the dead shard (post-mortem inspection only — its
         payload handles are no longer valid).
 
-        Recovery (rewarm from the ghost journal, rejoin rebalancing)
-        builds on this; the port has no ``faults.recovery`` yet.
+        ``repro_torch.faults.recovery.failover`` builds on this: lose,
+        rewarm from the ghost journal, rejoin rebalancing.
         """
         if not (0 <= sid < self.n_shards):
             raise ValueError(f"no shard {sid}")

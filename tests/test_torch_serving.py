@@ -177,13 +177,119 @@ def test_oversized_prompt_rejected_as_reference(models):
         _same_pool(jeng, peng)
 
 
-def test_engine_refuses_the_knobs_this_slice_does_not_take(models):
-    api, params = models[2:]
-    for kw in ({"n_shards": 2}, {"faults": None}, {"replicate": True},
-               {"autotune": True}, {"journal_dir": None},
-               {"io_retry": None}):
-        with pytest.raises(TypeError):
-            ServingEngine(api, params, device=CPU, **kw)
+def _chaos(F, loss_at):
+    """A shard loss at IO op ``loss_at`` under a mixed IO fault storm."""
+    return dict(faults=F.FaultPlan(13, [
+        F.FaultSpec(F.SHARD_LOSS, at=(loss_at,), shard=1),
+        F.FaultSpec(F.IO_ERROR, prob=0.2),
+        F.FaultSpec(F.PARTIAL_WRITE, prob=0.05),
+        F.FaultSpec(F.IO_DELAY, prob=0.1, ticks=3)]),
+        io_retry=F.RetryPolicy(max_retries=2))
+
+
+TUNE = dict(window_fracs=(0.1, 0.5, 1.0), retune_every=16, rate_shift=2,
+            min_gain=0.0, min_samples=8)
+
+# knob cases: engine kwargs made from a faults package (the reference's or
+# the port's), and the run's arrivals and scheduler seed.
+KNOBS = {
+    # tests/test_scheduler.py::test_engine_chaos_degraded_shed_and_recovery
+    "sharded-chaos": (lambda F, tmp: dict(
+        hbm_blocks=24, n_shards=2, faults=F.FaultPlan(7, [
+            F.FaultSpec(F.SHARD_LOSS, at=(6,), shard=0),
+            F.FaultSpec(F.IO_ERROR, prob=1.0)]),
+        io_retry=F.RetryPolicy(max_retries=0)), list(range(8)), 2),
+    "replicate-memory": (lambda F, tmp: dict(
+        hbm_blocks=24, n_shards=2, replicate=True, **_chaos(F, 4)),
+        [0, 0, 1, 1, 2, 2, 3, 3], 1),
+    "replicate-disk": (lambda F, tmp: dict(
+        hbm_blocks=24, n_shards=2, replicate=True,
+        journal_dir=str(tmp / F.__name__.split(".")[0]), **_chaos(F, 4)),
+        None, 0),
+    # tests/test_tuning.py::test_blockpool_autotune_backend, at a
+    # retune_every this short run reaches
+    "autotune": (lambda F, tmp: dict(hbm_blocks=24, autotune=dict(
+        TUNE, small_fracs=(0.05, 0.1, 0.2), ghost_fracs=(0.5, 1.0))),
+        None, 0),
+    "autotune-sharded": (lambda F, tmp: dict(
+        hbm_blocks=32, n_shards=4, autotune=dict(TUNE)), None, 0),
+}
+
+
+def _decisions(tuner):
+    return [(d.at_access, [dataclasses.asdict(c) for c in d.configs],
+             d.est_miss_ratios.tolist(), d.n_sampled, d.rate_shift,
+             dataclasses.asdict(d.chosen), d.applied)
+            for d in tuner.decisions]
+
+
+@pytest.mark.parametrize("case", sorted(KNOBS))
+def test_engine_knobs_equal_reference(models, tmp_path, case):
+    """The reference's pool knobs through both engines: statuses, tokens,
+    pool stats and flows, host and quarantine sets, injected faults, the
+    IO clock, the policy bytes, journals and tuner decisions equal, and
+    ``cache_mrc`` within 1e-12."""
+    from repro import faults as JF
+    from repro_torch import faults as PF
+
+    make, arrivals, seed = KNOBS[case]
+    japi, jparams, api, params = models
+    kw = dict(block_size=8, max_batch=2)
+    jeng = JEngine(japi, jparams, **kw, **make(JF, tmp_path))
+    peng = ServingEngine(api, params, device=CPU, **kw, **make(PF, tmp_path))
+    rng = np.random.default_rng(13)
+    prompts = [[int(t) for t in rng.integers(0, 512, 24)] for _ in range(8)]
+    reqs = [Request(i, p, max_new=3, priority=2 if i >= 6 else 0)
+            for i, p in enumerate(prompts)]
+    want, got = _serve(jeng, peng, reqs, arrivals=arrivals, seed=seed)
+    _same_tokens(models, dict(enumerate(prompts)), want, got)
+    _same_pool(jeng, peng)
+    jp, pp = jeng.pool, peng.pool
+    assert sorted(pp.host) == sorted(jp.host) and pp._corrupt == jp._corrupt
+    assert pp.io_clock().now == jp.io_clock().now
+    assert peng.degraded == jeng.degraded
+    assert PF.pack(PF.state_dict(pp.policy)) == \
+        JF.pack(JF.state_dict(jp.policy))
+    pevents = [(e["kind"], e["shard"], e["a"], e["b"])
+               for e in pp.obs_snapshot().events]
+    assert pevents == [(e["kind"], e["shard"], e["a"], e["b"])
+                       for e in jp.obs_snapshot().events]
+    if jp._io is not None:
+        assert (pp._io.plan.injected, pp._io.plan.op_seq) == \
+            (jp._io.plan.injected, jp._io.plan.op_seq)
+        assert pp._io.plan.injected > 0
+    if jp._replicator is not None:
+        assert "promote" in {e[0] for e in pevents}
+        n = pp.policy.n_shards
+        assert [pp.replication_lag(i) for i in range(n)] == \
+            [jp.replication_lag(i) for i in range(n)]
+        if case == "replicate-disk":
+            for pool in (jp, pp):
+                for jr in pool._replicator.journals:
+                    jr.close()
+            ref = {p.relative_to(tmp_path / "repro"): p.read_bytes()
+                   for p in (tmp_path / "repro").rglob("*") if p.is_file()}
+            port = {p.relative_to(tmp_path / "repro_torch"): p.read_bytes()
+                    for p in (tmp_path / "repro_torch").rglob("*")
+                    if p.is_file()}
+            assert port == ref and port
+            for i in range(n):
+                res = PF.recover(str(tmp_path / "repro_torch" / f"shard{i}"))
+                assert PF.pack(PF.state_dict(res.policy)) == \
+                    PF.pack(PF.state_dict(pp.policy.shards[i]))
+    if jp.tuner is not None:
+        assert _decisions(pp.tuner) == _decisions(jp.tuner)
+        assert len(pp.tuner.decisions) >= 2
+        caps = (12, 24, 48)
+        for shift in (0, 1):  # this short stream's sample at 1/2**shift
+            jm = jeng.cache_mrc(caps, rate_shift=shift)
+            pm = peng.cache_mrc(caps, rate_shift=shift)
+            assert list(pm) == list(jm) == list(caps)
+            assert all(np.isfinite(pm[c]) and abs(pm[c] - jm[c]) <= 1e-12
+                       for c in caps), (shift, pm, jm)
+    else:
+        with pytest.raises(RuntimeError):
+            peng.cache_mrc()
 
 
 def test_prodcache_equals_reference_call_for_call():
