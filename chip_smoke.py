@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's five paths on one CUDA card, through the hand-written
+Drives the port's six paths on one CUDA card, through the hand-written
 Hopper kernels, all built from the sources under
 ``src/repro_torch/kernels/*/csrc/`` at first use (one ``nvcc`` each,
 started together):
@@ -39,7 +39,17 @@ started together):
   its plain version (B and C strided as the model hands them over),
   ``flash_attention`` against its plain version on the shared block's
   own q, k, v at the hybrid's prefill shape, and each model's decode
-  path against a teacher-forced prefill on an fp32 cut.
+  path against a teacher-forced prefill on an fp32 cut;
+* the moe and vlm families behind the serving engine:
+  ``olmoe-1b-7b`` (64 experts, top-8) at full width and depth,
+  ``kimi-k2-1t-a32b`` at full width (384 experts, head_dim 112) cut to
+  one layer, and ``llava-next-mistral-7b`` at full width and depth with
+  a patch prefill beside its served requests (random bf16 weights),
+  prefill through ``flash_attention`` and decode through
+  ``paged_attention``, which are also held against their plain versions
+  at olmoe's 16/16 heads and kimi-k2's head_dim 112; olmoe's decode
+  path against a teacher-forced prefill on a dropless fp32 cut, and
+  llava's patch prefill on the card against the port on the CPU.
 
 Each phase prints one JSON line.  Then come the ``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -197,8 +207,9 @@ def flash_bound(B, S, H, Hkv, d, causal, esize=2):
 
 
 def attn_kernels_vs_plain(dev):
-    """Each attention kernel against its plain version on the card, at
-    granite's widths, fp32 and bf16; returns the phase record."""
+    """Each attention kernel against its plain version on the card, fp32
+    and bf16, at granite's widths, olmoe's 16/16 heads and kimi-k2's
+    64/8 heads at head_dim 112; returns the phase record."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.kernels.paged_attention import ops as pops
@@ -212,35 +223,42 @@ def attn_kernels_vs_plain(dev):
     # a chunk, one split of a full table and one past each, the full table
     split = pops.split_range(0, 2560, pops.plan_splits(8, 8, 2560))[1]
     edges = [pops.CHUNK, pops.CHUNK + 1, split, split + 1, 2560, 2559, 15, 33]
-    paged_cases = [(32, 8, lengths), (32, 8, edges),
-                   (8, 8, lengths), (32, 2, edges)]   # groups 4, 4, 1, 16
+    # (H, Hkv, lengths, d): groups 4, 4, 1, 16; olmoe's 16/16 heads;
+    # kimi-k2's 64/8 at d 112 (7 k-steps of 16)
+    paged_cases = [(32, 8, lengths, 128), (32, 8, edges, 128),
+                   (8, 8, lengths, 128), (32, 2, edges, 128),
+                   (16, 16, lengths, 128), (64, 8, lengths, 112),
+                   (64, 8, edges, 112)]
     for dt in ("float32", "bfloat16"):
-        for H, Hkv, lens in paged_cases:
+        for H, Hkv, lens, d in paged_cases:
             args = paged_inputs(dev, getattr(torch, dt), lens, rng, H=H,
-                                Hkv=Hkv)
+                                Hkv=Hkv, d=d)
             got = pops.paged_attention(*args)
             want = paged_attention_plain(*args)
             err, ok = _err(got, want, ATTN_TOL[dt][1])
-            require(ok, f"paged_attention {dt} H={H} Hkv={Hkv} lengths "
-                        f"{lens} != plain (max err {err})")
-            rec["paged"].append(dict(dtype=dt, B=8, H=H, Hkv=Hkv, d=128,
+            require(ok, f"paged_attention {dt} H={H} Hkv={Hkv} d={d} "
+                        f"lengths {lens} != plain (max err {err})")
+            rec["paged"].append(dict(dtype=dt, B=8, H=H, Hkv=Hkv, d=d,
                                      bs=16, N=1024, nb=160, lengths=lens,
                                      tol=ATTN_TOL[dt][1], max_abs_err=err))
-    cases = [(1, S, 8, True, 128) for S in (1, 17, 128, 1000, 2048)]
-    cases += [(1, S, 8, False, 128) for S in (1, 17, 128, 1000, 2048)]
-    cases += [(1, 1000, 8, True, 80), (4, 1000, 32, True, 64),
-              (4, 1000, 32, True, 80)]
+    # (B, S, H, Hkv, causal, hd): granite's 32/8 heads, the hybrid's hd 80,
+    # olmoe's 16/16 heads, kimi-k2's 64/8 at hd 112 (TMA's zeros past 112)
+    cases = [(1, S, 32, 8, True, 128) for S in (1, 17, 128, 1000, 2048)]
+    cases += [(1, S, 32, 8, False, 128) for S in (1, 17, 128, 1000, 2048)]
+    cases += [(1, 1000, 32, 8, True, 80), (4, 1000, 32, 32, True, 64),
+              (4, 1000, 32, 32, True, 80), (1, 1000, 16, 16, True, 128),
+              (1, 1000, 64, 8, True, 112), (1, 2048, 64, 8, True, 112)]
     for dt in ("float32", "bfloat16"):
-        for B, S, Hkv, causal, hd in cases:
+        for B, S, H, Hkv, causal, hd in cases:
             g = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(
                 np.float32)).to(dev, getattr(torch, dt))
-            q, k, v = g(B, S, 32, hd), g(B, S, Hkv, hd), g(B, S, Hkv, hd)
+            q, k, v = g(B, S, H, hd), g(B, S, Hkv, hd), g(B, S, Hkv, hd)
             got = fops.flash_attention(q, k, v, causal=causal)
             want = flash_attention_plain(q, k, v, causal)
             err, ok = _err(got, want, ATTN_TOL[dt][0])
-            require(ok, f"flash_attention {dt} B={B} S={S} Hkv={Hkv} "
+            require(ok, f"flash_attention {dt} B={B} S={S} H={H} Hkv={Hkv} "
                         f"causal={causal} hd={hd} != plain (max err {err})")
-            rec["flash"].append(dict(dtype=dt, B=B, S=S, H=32, Hkv=Hkv,
+            rec["flash"].append(dict(dtype=dt, B=B, S=S, H=H, Hkv=Hkv,
                                      hd=hd, causal=causal,
                                      route=fops.route(q.dtype),
                                      tol=ATTN_TOL[dt][0], max_abs_err=err))
@@ -268,6 +286,9 @@ def attn_kernels_vs_plain(dev):
     rec["max_abs_err"] = dict(
         paged=max(r["max_abs_err"] for r in rec["paged"]),
         flash=max(r["max_abs_err"] for r in rec["flash"]))
+    rec["max_abs_err_hd112"] = dict(
+        paged=max(r["max_abs_err"] for r in rec["paged"] if r["d"] == 112),
+        flash=max(r["max_abs_err"] for r in rec["flash"] if r["hd"] == 112))
     rec["seconds"] = time.perf_counter() - t0
     return rec
 
@@ -317,6 +338,59 @@ def _pct(xs, q):
     return float(np.percentile(np.asarray(xs) * 1e3, q))
 
 
+def serve_run(dev, api, params, reqs, serve=SERVE):
+    """Serve ``reqs`` on a fresh engine over ``params``, after a warm-up
+    prefill off the counts; returns (engine, completions, the step
+    record of ``_instrument``, wall seconds, launches per kernel in the
+    run)."""
+    from repro_torch.kernels.cache_sim import ops as cops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedConfig
+
+    eng = ServingEngine(api, params, device=dev, **serve)
+    api.prefill(params, torch.zeros((1, 64), dtype=torch.long, device=dev))
+    torch.cuda.synchronize()                       # warm-up, off the pool
+    rec = _instrument(eng)
+
+    fops.launch_count = pops.launch_count = cops.launch_count = 0
+    t1 = time.perf_counter()
+    outs = eng.run(reqs, config=SchedConfig(max_batch=serve["max_batch"],
+                                            token_budget=TOKEN_BUDGET))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    return eng, outs, rec, wall, dict(flash_attention=fops.launch_count,
+                                      paged_attention=pops.launch_count,
+                                      cache_sim=cops.launch_count)
+
+
+def serve_metrics(dev, eng, outs, rec, wall) -> dict:
+    """What a serving phase reports of ``serve_run``'s run: throughput,
+    prefill and decode-step ms p50/p99 (host clock), the decode batch,
+    the pool's counters and the peak device bytes."""
+    stats, flows = eng.stats
+    done = [c for c in outs if c.status == "completed"]
+    out_tokens = sum(len(c.tokens) for c in done)
+    return dict(
+        completed=len(done), wall_s=wall, requests_per_s=len(outs) / wall,
+        output_tokens_per_s=out_tokens / wall,
+        prefill_ms_p50=_pct(rec["prefill_s"], 50),
+        prefill_ms_p99=_pct(rec["prefill_s"], 99),
+        prefills=len(rec["prefill_s"]),
+        prompt_len_range=[min(rec["prompt_lens"]), max(rec["prompt_lens"])],
+        decode_step_ms_p50=_pct(rec["decode_s"], 50),
+        decode_step_ms_p99=_pct(rec["decode_s"], 99),
+        decode_steps=len(rec["decode_s"]),
+        decode_batch_mean=float(np.mean([len(x) for x in
+                                         rec["decode_lens"]])),
+        pool=dataclasses.asdict(stats), hit_ratio=stats.hit_ratio,
+        flows=flows, host_blocks=len(eng.pool.host),
+        pool_lookups=stats.hits + stats.misses,
+        host_io_ops=stats.swap_in + stats.swap_out,
+        peak_device_bytes=torch.cuda.max_memory_allocated(dev))
+
+
 def serve_main(dev):
     """Full-width, full-depth granite-3-8b behind the serving engine;
     returns (phase record, launches per kernel, the run's decode context
@@ -324,12 +398,7 @@ def serve_main(dev):
     model, its params, the tokens per request, the pool's lookups and its
     host IO operations)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.cache_sim import ops as cops
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.models.model import build
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.scheduler import SchedConfig
 
     t0 = time.perf_counter()
     cfg = get_config("granite-3-8b")
@@ -338,23 +407,10 @@ def serve_main(dev):
     params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    eng = ServingEngine(api, params, device=dev, **SERVE)
     reqs = make_requests(32, seed=0, vocab=cfg.vocab)
-    api.prefill(params, torch.zeros((1, 64), dtype=torch.long, device=dev))
-    torch.cuda.synchronize()                       # warm-up, off the pool
-    rec = _instrument(eng)
+    eng, outs, rec, wall, launches = serve_run(dev, api, params, reqs)
 
-    fops.launch_count = pops.launch_count = cops.launch_count = 0
-    t1 = time.perf_counter()
-    outs = eng.run(reqs, config=SchedConfig(max_batch=SERVE["max_batch"],
-                                            token_budget=TOKEN_BUDGET))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    launches = dict(flash_attention=fops.launch_count,
-                    paged_attention=pops.launch_count,
-                    cache_sim=cops.launch_count)
-
-    stats, flows = eng.stats
+    stats, _ = eng.stats
     done = [c for c in outs if c.status == "completed"]
     require(len(done) == 32 and all(len(c.tokens) == MAX_NEW for c in done),
             f"serve_main: {len(done)} of 32 completed "
@@ -371,32 +427,15 @@ def serve_main(dev):
     # decode row's length
     rows = np.concatenate([np.asarray(x) for x in rec["decode_lens"]])
     med = [int(np.percentile(rows, 100 * (2 * i + 1) / 16)) for i in range(8)]
-    out_tokens = sum(len(c.tokens) for c in done)
     phase = dict(
         phase="serve_main", model=cfg.name, n_layers=cfg.n_layers,
         d_model=cfg.d_model, dtype=cfg.dtype, n_params=cfg.n_params(),
         weights="random, torch.Generator(cuda).manual_seed(0)",
         engine=SERVE, token_budget=TOKEN_BUDGET, requests=32,
         prefix_len=PREFIX_LEN, n_prefixes=N_PREFIXES, suffix=SUFFIX,
-        max_new=MAX_NEW, completed=len(done), init_s=init_s,
-        wall_s=wall, requests_per_s=32 / wall,
-        output_tokens_per_s=out_tokens / wall,
-        prefill_ms_p50=_pct(rec["prefill_s"], 50),
-        prefill_ms_p99=_pct(rec["prefill_s"], 99),
-        prefills=len(rec["prefill_s"]),
-        prompt_len_range=[min(rec["prompt_lens"]), max(rec["prompt_lens"])],
-        decode_step_ms_p50=_pct(rec["decode_s"], 50),
-        decode_step_ms_p99=_pct(rec["decode_s"], 99),
-        decode_steps=len(rec["decode_s"]),
-        decode_batch_mean=float(np.mean([len(x) for x in
-                                         rec["decode_lens"]])),
-        decode_lengths_octiles=med,
-        pool=dataclasses.asdict(stats), hit_ratio=stats.hit_ratio,
-        flows=flows, host_blocks=len(eng.pool.host),
-        peak_device_bytes=torch.cuda.max_memory_allocated(dev),
-        launches=launches)
-    phase.update(pool_lookups=stats.hits + stats.misses,
-                 host_io_ops=stats.swap_in + stats.swap_out)
+        max_new=MAX_NEW, init_s=init_s,
+        **serve_metrics(dev, eng, outs, rec, wall),
+        decode_lengths_octiles=med, launches=launches)
     del eng
     torch.cuda.empty_cache()
     phase["profile"] = serve_profile(dev, api, params)
@@ -495,45 +534,349 @@ def teacher_forced(api, params, reqs, by_id, dev):
     return compared, mismatches, ties
 
 
-def serve_consistency(dev):
-    """The decode kernel's path against the prefill kernel's path on the
-    whole model: granite-3-8b at full width in fp32, depth cut to 4
-    layers, 8 requests; a teacher-forced ``forward_prefill`` over each
-    prompt and its generated tokens must pick the engine's token at every
-    generated position, near ties (top-2 margin < 1e-3) excepted and
-    reported."""
-    from repro_torch.configs import get_config
+def consistency_run(dev, phase: str, cfg, reduced, serve=SERVE):
+    """Serve 8 requests on ``cfg`` (an fp32 cut of a model at full
+    width) and hold the engine's tokens to a teacher-forced
+    ``forward_prefill`` over each prompt and its generated tokens: the
+    prefill must pick the engine's token at every generated position,
+    near ties (top-2 margin < 1e-3) excepted and reported."""
     from repro_torch.models.model import build
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.scheduler import SchedConfig
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("granite-3-8b"),
-                              n_layers=CONSISTENCY_LAYERS, dtype="float32",
-                              param_dtype="float32")
     api = build(cfg)
     params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
-    eng = ServingEngine(api, params, device=dev, **SERVE)
+    eng = ServingEngine(api, params, device=dev, **serve)
     reqs = make_requests(8, seed=1, vocab=cfg.vocab)
-    outs = eng.run(reqs, config=SchedConfig(max_batch=SERVE["max_batch"],
+    outs = eng.run(reqs, config=SchedConfig(max_batch=serve["max_batch"],
                                             token_budget=TOKEN_BUDGET))
     by_id = {c.req_id: c for c in outs}
     require(all(by_id[r.req_id].status == "completed" and
                 len(by_id[r.req_id].tokens) == MAX_NEW for r in reqs),
-            "serve_consistency: a request did not complete")
+            f"{phase}: a request did not complete")
     compared, mismatches, ties = teacher_forced(api, params, reqs, by_id,
                                                 dev)
-    require(not mismatches, f"serve_consistency: decode-path tokens != "
+    require(not mismatches, f"{phase}: decode-path tokens != "
                             f"teacher-forced prefill tokens: {mismatches}")
     stats, _ = eng.stats
-    rec = dict(phase="serve_consistency", model=cfg.name, dtype=cfg.dtype,
-               reduced=[f"n_layers 40 -> {CONSISTENCY_LAYERS}"],
-               requests=len(reqs), positions_compared=compared,
-               mismatches=0, near_ties=ties, near_tie_margin=NEAR_TIE,
-               pool=dataclasses.asdict(stats),
+    rec = dict(phase=phase, model=cfg.name, dtype=cfg.dtype,
+               reduced=reduced, engine=serve, requests=len(reqs),
+               positions_compared=compared, mismatches=0, near_ties=ties,
+               near_tie_margin=NEAR_TIE, pool=dataclasses.asdict(stats),
                allow_tf32=torch.backends.cuda.matmul.allow_tf32,
                seconds=time.perf_counter() - t0)
     del eng, params, api
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_consistency(dev):
+    """The decode kernel's path against the prefill kernel's path on the
+    whole model: granite-3-8b at full width in fp32, depth cut to 4
+    layers (``consistency_run``)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              n_layers=CONSISTENCY_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    return consistency_run(dev, "serve_consistency", cfg,
+                           [f"n_layers 40 -> {CONSISTENCY_LAYERS}"])
+
+
+# -- the moe and vlm families ----------------------------------------------------
+
+MOE_CUT = dict(n_layers=4, capacity_factor=64.0)  # moe_consistency's cut
+MOE_CUT_BATCH = 4           # ... and max_batch: decode capacity 4 covers it
+MOE_STAGE_T = (8, 1536)     # moe stage times: a padded decode batch, a prefill
+WIDE_LAYERS, WIDE_REQUESTS = 1, 4   # moe_wide: kimi-k2's 61 layers cut to 1
+VLM_BATCH, VLM_TOKENS = 2, 512      # vlm_main: B x (576 patches + 512 tokens)
+VLM_REQUESTS = 8
+VLM_CUT_LAYERS, VLM_CUT_TOKENS = 2, 128   # vlm_consistency: depth, tokens
+VLM_TOL = 1e-4              # vlm_consistency: logits, rel. to max |logit|
+
+
+def expert_bytes(cfg) -> int:
+    """Bytes of every routed expert's weights over all layers: what one
+    moe forward reads, whatever its tokens (each expert runs on its whole
+    capacity buffer)."""
+    mult = 3 if cfg.act == "swiglu" else 2
+    esize = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    return (cfg.n_layers * cfg.n_experts * mult * cfg.d_model * cfg.moe_d_ff
+            * esize)
+
+
+def moe_stage_ms(dev, cfg, p, T: int, decode: bool) -> dict:
+    """CUDA-event ms of each stage of one moe layer (params ``p``) on T
+    random unit-variance tokens, as a block hands them over after its
+    norm: route, dispatch, expert FFN, combine; median of 5 after a
+    warm-up, the L2 not emptied."""
+    from repro_torch.models import moe as M
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    xf = torch.randn((T, cfg.d_model), generator=g, device=dev).to(
+        getattr(torch, cfg.dtype))
+    r = M.route(cfg, p, xf, decode)
+    buf = M.dispatch(cfg, r, xf)
+    out = M.expert_ffn(cfg, p, buf)
+    stages = dict(route=lambda: M.route(cfg, p, xf, decode),
+                  dispatch=lambda: M.dispatch(cfg, r, xf),
+                  expert_ffn=lambda: M.expert_ffn(cfg, p, buf),
+                  combine=lambda: M.combine(cfg, p, r, out, xf))
+    rec = {k: statistics.median(warm_ms(fn, None, 5))
+           for k, fn in stages.items()}
+    rec.update(T=T, decode=decode, capacity=r.C,
+               kept_share=float(r.keep.float().mean()),
+               expert_ffn_bytes_floor_ms=1e3 * expert_bytes(cfg)
+               / cfg.n_layers / HBM_BYTES_PER_S)
+    return rec
+
+
+def _init_model(dev, cfg):
+    """(api, params, init seconds, weight bytes, init peak bytes): random
+    weights from ``torch.Generator(cuda).manual_seed(0)``, after what
+    earlier phases left is freed."""
+    from repro_torch.models.model import build
+
+    api = build(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    return (api, params, time.perf_counter() - t0,
+            torch.cuda.memory_allocated(dev) - before,
+            torch.cuda.max_memory_allocated(dev))
+
+
+def _served(phase: str, cfg, outs, n: int, launches, m, extra_flash=0):
+    """The gates of a served family phase: ``n`` of ``n`` complete with
+    ``MAX_NEW`` tokens in the vocabulary, flash launched once a layer a
+    prefill (``extra_flash`` prefills outside the engine besides) and
+    paged once a layer a decode step, ``cache_sim`` never."""
+    done = [c for c in outs if c.status == "completed"]
+    require(len(done) == n and all(len(c.tokens) == MAX_NEW for c in done),
+            f"{phase}: {len(done)} of {n} completed "
+            f"({[(c.req_id, c.status, len(c.tokens)) for c in outs]})")
+    require(all(0 <= t < cfg.vocab for c in done for t in c.tokens),
+            f"{phase}: a token outside the vocabulary")
+    want = dict(flash_attention=(m["prefills"] + extra_flash) * cfg.n_layers,
+                paged_attention=m["decode_steps"] * cfg.n_layers,
+                cache_sim=0)
+    require(launches == want and m["decode_steps"] > 0,
+            f"{phase}: launches {launches}, want {want} (one a layer a "
+            f"prefill and a decode step)")
+
+
+def moe_main(dev):
+    """Full-width, full-depth olmoe-1b-7b (64 experts, top-8) behind the
+    serving engine on ``serve_main``'s 32 requests; returns (phase
+    record, launches per kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    cfg = get_config("olmoe-1b-7b")
+    api, params, init_s, weight_bytes, _ = _init_model(dev, cfg)
+    reqs = make_requests(32, seed=0, vocab=cfg.vocab)
+    eng, outs, rec, wall, launches = serve_run(dev, api, params, reqs)
+    m = serve_metrics(dev, eng, outs, rec, wall)
+    _served("moe_main", cfg, outs, 32, launches, m)
+    require(m["pool"]["hits"] > 0, "moe_main: no prefix hit in the pool")
+    floor = expert_bytes(cfg)
+    phase = dict(
+        phase="moe_main", model=cfg.name, family=cfg.family,
+        n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, n_experts=cfg.n_experts,
+        experts_per_tok=cfg.experts_per_tok, moe_d_ff=cfg.moe_d_ff,
+        dtype=cfg.dtype, n_params=_n_params(params),
+        n_params_analytic=cfg.n_params(), weight_bytes=weight_bytes,
+        weights="random, torch.Generator(cuda).manual_seed(0)",
+        engine=SERVE, token_budget=TOKEN_BUDGET, requests=32,
+        prefix_len=PREFIX_LEN, n_prefixes=N_PREFIXES, suffix=SUFFIX,
+        max_new=MAX_NEW, init_s=init_s, **m, launches=launches,
+        expert_bytes_a_step=floor,
+        decode_bytes_floor_ms=1e3 * floor / HBM_BYTES_PER_S)
+    del eng
+    torch.cuda.empty_cache()
+    p0 = L.layer(params["blocks"], 0)["moe"]
+    phase["moe_stage_ms"] = [moe_stage_ms(dev, cfg, p0, T, T <= SERVE[
+        "max_batch"]) for T in MOE_STAGE_T]
+    t1 = time.perf_counter()
+    phase["profile"] = serve_profile(dev, api, params)
+    phase.update(profile_s=time.perf_counter() - t1,
+                 seconds=time.perf_counter() - t0)
+    del params, api, p0
+    torch.cuda.empty_cache()
+    return phase, launches
+
+
+def moe_consistency(dev):
+    """olmoe-1b-7b at full width in fp32 against a teacher-forced prefill
+    (``consistency_run``), cut so that no assignment drops: 4 layers,
+    capacity factor 64 (a dropless prefill, as tests/test_models.py cuts
+    it) and ``max_batch`` 4 (decode capacity 4 at T = 4: every row)."""
+    from repro_torch.configs import get_config
+
+    full = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(full, dtype="float32", param_dtype="float32",
+                              **MOE_CUT)
+    return consistency_run(
+        dev, "moe_consistency", cfg,
+        [f"n_layers {full.n_layers} -> {cfg.n_layers}",
+         f"capacity_factor {full.capacity_factor} -> {cfg.capacity_factor}",
+         f"max_batch {SERVE['max_batch']} -> {MOE_CUT_BATCH}"],
+        dict(SERVE, max_batch=MOE_CUT_BATCH))
+
+
+def moe_wide(dev):
+    """kimi-k2-1t-a32b at published width (384 experts, top-8, a shared
+    expert, d 7168, 64/8 heads at head_dim 112), depth cut to 1 layer,
+    behind the serving engine on 4 requests of ``serve_main``'s shape;
+    returns (phase record, launches per kernel)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    full = get_config("kimi-k2-1t-a32b")
+    cfg = dataclasses.replace(full, n_layers=WIDE_LAYERS)
+    require(cfg.hd == 112, f"moe_wide: head_dim {cfg.hd}, want 112")
+    api, params, init_s, weight_bytes, init_peak = _init_model(dev, cfg)
+    reqs = make_requests(WIDE_REQUESTS, seed=2, vocab=cfg.vocab)
+    eng, outs, rec, wall, launches = serve_run(dev, api, params, reqs)
+    m = serve_metrics(dev, eng, outs, rec, wall)
+    _served("moe_wide", cfg, outs, WIDE_REQUESTS, launches, m)
+    floor = expert_bytes(cfg)
+    phase = dict(
+        phase="moe_wide", model=cfg.name, family=cfg.family,
+        reduced=[f"n_layers {full.n_layers} -> {cfg.n_layers}"],
+        n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, n_experts=cfg.n_experts,
+        experts_per_tok=cfg.experts_per_tok, moe_d_ff=cfg.moe_d_ff,
+        n_shared_experts=cfg.n_shared_experts, vocab=cfg.vocab,
+        dtype=cfg.dtype, n_params=_n_params(params),
+        n_params_analytic=cfg.n_params(), weight_bytes=weight_bytes,
+        init_peak_device_bytes=init_peak,
+        weights="random, torch.Generator(cuda).manual_seed(0)",
+        engine=SERVE, requests=WIDE_REQUESTS, max_new=MAX_NEW,
+        init_s=init_s, **m, launches=launches, expert_bytes_a_step=floor,
+        decode_bytes_floor_ms=1e3 * floor / HBM_BYTES_PER_S,
+        seconds=time.perf_counter() - t0)
+    del eng, params, api
+    torch.cuda.empty_cache()
+    return phase, launches
+
+
+def vlm_main(dev):
+    """Full-width, full-depth llava-next-mistral-7b: one patch prefill of
+    ``VLM_BATCH`` x (576 numpy-seeded patch embeddings + ``VLM_TOKENS``
+    tokens) through ``build().prefill``, timed, then 8 token-only
+    requests behind the serving engine, as the reference's engine serves
+    the vlm family; returns (phase record, launches per kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    t0 = time.perf_counter()
+    cfg = get_config("llava-next-mistral-7b")
+    api, params, init_s, weight_bytes, _ = _init_model(dev, cfg)
+    rng = np.random.default_rng(0)
+    pe = torch.from_numpy(rng.normal(0, 1, (
+        VLM_BATCH, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                        (VLM_BATCH, VLM_TOKENS)), device=dev)
+    api.prefill(params, toks[:, :16], patch_embeds=pe[:, :16])  # warm-up
+    torch.cuda.synchronize()
+    fops.launch_count = 0
+    t1 = time.perf_counter()
+    logits, cache = api.prefill(params, toks, patch_embeds=pe)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    patch_launches = fops.launch_count
+    S = cfg.n_patches + VLM_TOKENS
+    require(bool(torch.isfinite(logits).all()) and
+            logits.shape == (VLM_BATCH, 1, cfg.vocab) and
+            cache.k.shape[2] == S and
+            patch_launches == cfg.n_layers,
+            f"vlm_main: patch prefill logits {tuple(logits.shape)}, cache "
+            f"{tuple(cache.k.shape)}, {patch_launches} flash launches")
+    first = logits[:, 0].argmax(-1).tolist()
+    del logits, cache
+    reqs = make_requests(VLM_REQUESTS, seed=4, vocab=cfg.vocab)
+    eng, outs, rec, wall, launches = serve_run(dev, api, params, reqs)
+    launches["flash_attention"] += patch_launches
+    m = serve_metrics(dev, eng, outs, rec, wall)
+    _served("vlm_main", cfg, outs, VLM_REQUESTS, launches, m, extra_flash=1)
+    phase = dict(
+        phase="vlm_main", model=cfg.name, family=cfg.family,
+        frontend=cfg.frontend, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, dtype=cfg.dtype,
+        n_params=_n_params(params), n_params_analytic=cfg.n_params(),
+        weight_bytes=weight_bytes,
+        weights="random, torch.Generator(cuda).manual_seed(0)",
+        patch_prefill=dict(
+            batch=VLM_BATCH, patches=cfg.n_patches, tokens=VLM_TOKENS,
+            positions=S, patch_embeds="numpy default_rng(0) normal(0, 1)",
+            ms=1e3 * prefill_s,
+            positions_per_s=VLM_BATCH * S / prefill_s,
+            flash_shape=[VLM_BATCH, S, cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+            first_tokens=first),
+        engine=SERVE, requests=VLM_REQUESTS, max_new=MAX_NEW,
+        init_s=init_s, **m, launches=launches,
+        seconds=time.perf_counter() - t0)
+    del eng, params, api, pe
+    torch.cuda.empty_cache()
+    return phase, launches
+
+
+def vlm_consistency(dev):
+    """llava-next-mistral-7b at full width in fp32, depth cut to 2: one
+    prompt of 576 numpy-seeded patch embeddings + 128 tokens through the
+    card's path (the flash kernel) and, with the same params carried
+    through numpy, through the port on the CPU (plain attention); the
+    logits within 1e-4 of max |logit|, the KV cache within 1e-4 of its
+    max |x|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import (build, params_from_numpy,
+                                          params_to_numpy)
+
+    t0 = time.perf_counter()
+    full = get_config("llava-next-mistral-7b")
+    cfg = dataclasses.replace(full, n_layers=VLM_CUT_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    host = params_from_numpy(cfg, params_to_numpy(params), device="cpu")
+    rng = np.random.default_rng(5)
+    pe = rng.normal(0, 1, (1, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, (1, VLM_CUT_TOKENS))
+    t1 = time.perf_counter()
+    got, gcache = api.prefill(params, torch.as_tensor(toks, device=dev),
+                              full_logits=True,
+                              patch_embeds=torch.from_numpy(pe).to(dev))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    want, wcache = api.prefill(host, torch.from_numpy(toks),
+                               full_logits=True,
+                               patch_embeds=torch.from_numpy(pe))
+    cpu_s = time.perf_counter() - t1
+    err = _rel_err(got.cpu(), want)
+    kv_err = max(_rel_err(gcache.k.cpu(), wcache.k),
+                 _rel_err(gcache.v.cpu(), wcache.v))
+    require(err <= VLM_TOL and kv_err <= VLM_TOL,
+            f"vlm_consistency: card != CPU (logits rel err {err}, KV "
+            f"{kv_err}; tolerance {VLM_TOL})")
+    picks = int((got.cpu().argmax(-1) == want.argmax(-1)).sum())
+    rec = dict(phase="vlm_consistency", model=cfg.name, dtype=cfg.dtype,
+               reduced=[f"n_layers {full.n_layers} -> {cfg.n_layers}"],
+               patches=cfg.n_patches, tokens=VLM_CUT_TOKENS,
+               positions=int(got.shape[1]), logit_rel_err=err,
+               kv_rel_err=kv_err, tol=VLM_TOL, greedy_equal=picks,
+               card_s=card_s, cpu_s=cpu_s, cpu_threads=torch.get_num_threads(),
+               allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+               seconds=time.perf_counter() - t0)
+    del params, host, api, got, gcache
     torch.cuda.empty_cache()
     return rec
 
@@ -2998,6 +3341,20 @@ def main() -> int:
     st = mamba_scan_time(dev)
     emit(st)
 
+    # -- the moe and vlm families: olmoe, kimi-k2 (hd 112), llava ---------------
+    moe, moe_launches = moe_main(dev)
+    emit(moe)
+    emit(moe_consistency(dev))
+    wide, wide_launches = moe_wide(dev)
+    emit(wide)
+    vlm, vlm_launches = vlm_main(dev)
+    emit(vlm)
+    emit(vlm_consistency(dev))
+    family_launches = dict(moe_main=moe_launches, moe_wide=wide_launches,
+                           vlm_main=vlm_launches)
+    by_family = {k: {p: n[k] for p, n in family_launches.items()}
+                 for k in ("flash_attention", "paged_attention")}
+
     emit({"kernels": [dict(
         name="cache_sim", route="cuda",
         source="src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu",
@@ -3024,11 +3381,15 @@ def main() -> int:
                     "paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/paged_attention.py:30",
              launches=serve_launches["paged_attention"]
-             + chaos_launches["paged_attention"],
+             + chaos_launches["paged_attention"]
+             + sum(by_family["paged_attention"].values()),
              launches_by_path=dict(
                  serve_main=serve_launches["paged_attention"],
-                 chaos_path=chaos_launches["paged_attention"]),
-             max_abs_err=check["max_abs_err"]["paged"], ms=pt["ms"],
+                 chaos_path=chaos_launches["paged_attention"],
+                 **by_family["paged_attention"]),
+             max_abs_err=check["max_abs_err"]["paged"],
+             max_abs_err_hd112=check["max_abs_err_hd112"]["paged"],
+             ms=pt["ms"],
              plain_ms=check["paged_plain_ms"], bound_ms=pt["bound_ms"],
              bound_by=pt["bound_by"], library_ms=pt["library_ms"],
              ms_shape=pt["shape"],
@@ -3040,16 +3401,19 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention/flash_attention.py:25",
              launches=serve_launches["flash_attention"]
              + chaos_launches["flash_attention"]
-             + hyb_launches["flash_attention"],
+             + hyb_launches["flash_attention"]
+             + sum(by_family["flash_attention"].values()),
              launches_by_path=dict(
                  serve_main=serve_launches["flash_attention"],
                  chaos_path=chaos_launches["flash_attention"],
-                 hybrid_main=hyb_launches["flash_attention"]),
+                 hybrid_main=hyb_launches["flash_attention"],
+                 **by_family["flash_attention"]),
              max_abs_err=max(check["max_abs_err"]["flash"],
                              hyb_check["max_abs_err"]),
              max_abs_err_by_path=dict(
                  serve_main=check["max_abs_err"]["flash"],
                  hybrid_main=hyb_check["max_abs_err"]),
+             max_abs_err_hd112=check["max_abs_err_hd112"]["flash"],
              ms=ft["ms"],
              plain_ms=check["flash_plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"],

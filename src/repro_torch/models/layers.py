@@ -63,11 +63,13 @@ def tree_from_numpy(tree: Dict, dtype: torch.dtype, device: torch.device,
 
 # -- initialisers -------------------------------------------------------------
 
-def dense_init(gen: torch.Generator, shape, dtype,
-               scale: float = 1.0) -> torch.Tensor:
+def dense_init(gen: torch.Generator, shape, dtype, scale: float = 1.0,
+               fan_in: Optional[int] = None) -> torch.Tensor:
     """Normal weights with std ``scale / sqrt(fan_in)`` on the generator's
-    device; ``fan_in`` is ``shape[-2]`` (a leading axis stacks layers)."""
-    fan_in = shape[-2] if len(shape) >= 2 else max(1, shape[0])
+    device; ``fan_in`` is ``shape[-2]`` (a leading axis stacks layers)
+    unless the caller gives it."""
+    if fan_in is None:
+        fan_in = shape[-2] if len(shape) >= 2 else max(1, shape[0])
     out = torch.empty(shape, dtype=dtype, device=gen.device)
     return out.normal_(0.0, scale / float(np.sqrt(fan_in)), generator=gen)
 
@@ -228,6 +230,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 # -- MLPs --------------------------------------------------------------------------------
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh form, ``jax.nn.gelu``'s default."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU or GELU MLP; weights (D, d_ff) and (d_ff, D)."""
     if cfg.act == "swiglu":
@@ -236,7 +243,7 @@ def mlp_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(gate.float()).to(x.dtype) * up
     else:  # gelu
         h = x @ p["w_up"]
-        h = F.gelu(h.float()).to(x.dtype)
+        h = gelu(h.float()).to(x.dtype)
     return h @ p["w_down"]
 
 

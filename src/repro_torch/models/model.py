@@ -3,20 +3,23 @@
 ``build(cfg)`` returns a ``ModelAPI`` with the functions its callers
 use:
   init(generator, device=None) -> params
-  prefill(params, tokens, full_logits=False[, max_len]) -> (logits, cache)
+  prefill(params, tokens, full_logits=False[, max_len | patch_embeds])
+      -> (logits, cache)
   decode(params, tokens, cache) -> (logits, cache)
   init_cache(batch, max_len, device=None) -> zeroed cache
   decode_paged(params, tokens, kpool, vpool, block_tables, lengths,
                slot_ids, slot_offs) -> (logits, kpool, vpool)
 
-Three families are ported.  The dense family serves through the paged
-KV pool (``decode_paged``); its contiguous-cache ``decode`` and
-``init_cache`` are queued and raise.  The SSM family (falcon-mamba,
-Mamba1 blocks on the ``mamba_scan`` kernel) and the hybrid family
-(zamba2, Mamba2 blocks plus one shared attention block) decode from
-their own state with ``decode``; like the reference's serving engine,
-the paged decode refuses them.  The training loss comes with the
-training slice; the other families raise ``NotImplementedError``.
+Five families are ported.  The transformer families (dense, vlm with
+its patch frontend, moe with routed experts) serve through the paged
+KV pool (``decode_paged``); the vlm family's ``prefill`` takes the
+patch embeddings (``patch_embeds``, B x P x D), and the
+contiguous-cache ``decode`` and ``init_cache`` are queued and raise.
+The SSM family (falcon-mamba, Mamba1 blocks on the ``mamba_scan``
+kernel) and the hybrid family (zamba2, Mamba2 blocks plus one shared
+attention block) decode from their own state with ``decode``; like the
+reference's serving engine, the paged decode refuses them.  The training loss comes with the
+training slice; the encoder-decoder raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,13 +38,11 @@ from repro_torch.models.config import ModelConfig
 
 # Where the families the port does not run yet are queued.
 _QUEUED = {
-    "moe": "ROADMAP.md queue 1, item 9 (models/moe.py)",
-    "vlm": "ROADMAP.md queue 1, item 9 (the vlm frontend)",
     "encdec": "ROADMAP.md queue 1, item 11 (models/encdec.py)",
 }
-_DENSE_DECODE = ("the dense family's contiguous-cache decode (forward_decode, "
-                 "init_kv_cache) is ROADMAP.md queue 1, item 10; it serves "
-                 "through decode_paged")
+_DENSE_DECODE = ("the transformer families' contiguous-cache decode "
+                 "(forward_decode, init_kv_cache) is ROADMAP.md queue 1, "
+                 "item 10; they serve through decode_paged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +65,8 @@ def _raise(msg: str) -> Callable[..., Any]:
 
 # The leaves each family keeps fp32 whatever the parameter dtype, as the
 # reference does.
-_FP32_LEAVES = {"dense": (), "ssm": M.FP32_LEAVES["mamba1"],
+_FP32_LEAVES = {"dense": (), "vlm": (), "moe": ("router",),
+                "ssm": M.FP32_LEAVES["mamba1"],
                 "hybrid": M.FP32_LEAVES["mamba2"]}
 
 
@@ -161,14 +163,15 @@ def _hybrid_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 def build(cfg: ModelConfig) -> ModelAPI:
     """The ``ModelAPI`` of ``cfg``; raises for a family not yet ported."""
     fam = cfg.family
-    if fam == "dense":
+    if fam in T.FAMILIES:
         return ModelAPI(
             cfg=cfg,
             init=lambda generator, device=None: T.init_params(
                 cfg, generator, device),
-            prefill=lambda params, tokens, full_logits=False:
-                T.forward_prefill(cfg, params, tokens,
-                                  full_logits=full_logits),
+            prefill=lambda params, tokens, full_logits=False,
+                patch_embeds=None: T.forward_prefill(
+                    cfg, params, tokens, full_logits=full_logits,
+                    patch_embeds=patch_embeds),
             decode=_raise(_DENSE_DECODE),
             init_cache=_raise(_DENSE_DECODE),
             decode_paged=lambda params, *args: T.forward_decode_paged(
@@ -205,5 +208,5 @@ def build(cfg: ModelConfig) -> ModelAPI:
     if where is None:
         raise ValueError(f"unknown family {fam!r}")
     raise NotImplementedError(
-        f"the port runs the dense, ssm and hybrid families; {fam!r} "
-        f"({cfg.name}) is {where}")
+        f"the port runs the dense, vlm, moe, ssm and hybrid families; "
+        f"{fam!r} ({cfg.name}) is {where}")

@@ -37,6 +37,7 @@ from repro_torch.kvcache.manager import PagedKVManager
 from repro_torch.kvcache.pool import BlockPool
 from repro_torch.models import layers as L
 from repro_torch.models.model import ModelAPI
+from repro_torch.models.transformer import FAMILIES
 from repro_torch.serving.admission import ST_COMPLETED, SchedRequest
 from repro_torch.serving.scheduler import SchedConfig, Scheduler
 
@@ -67,7 +68,9 @@ class Completion:
 
 
 class ServingEngine:
-    """Single-host engine for the dense family; greedy sampling.
+    """Single-host engine for the dense/vlm/moe families (the paged-KV
+    families); greedy sampling.  A vlm model serves token prompts, as the
+    reference's engine serves it.
 
     ``params`` must live on ``device`` (the card unless the caller names
     another), where the KV pool is allocated."""
@@ -79,9 +82,10 @@ class ServingEngine:
                  autotune=False, faults=None, io_retry=None,
                  replicate: bool = False, journal_dir=None, obs=None,
                  device=None):
-        if api.cfg.family != "dense":
+        if api.cfg.family not in FAMILIES:
             raise NotImplementedError(
-                "the port's paged serving runs the dense family only")
+                f"paged serving targets the attention-KV families, not "
+                f"{api.cfg.family!r}")
         self.api = api
         self.cfg = api.cfg
         self.params = params
@@ -134,7 +138,7 @@ class ServingEngine:
 
     # -- prefill ------------------------------------------------------------------
     def _prefill_into_pool(self, st, fill_blocks: List[int]) -> int:
-        """Run the dense prefill, write the missing blocks' KV, and return
+        """Run the prefill, write the missing blocks' KV, and return
         the first generated token (greedy).  Prefix-cache hits avoid
         block writes and deduplicate device memory (two sequences share
         physical blocks); logits still require the full forward here."""
@@ -179,9 +183,16 @@ class ServingEngine:
         """One decode step for the sequences in ``ids`` (<= max_batch):
         each sequence's newest token (at position pos) writes its KV at
         pos and attends to [0, pos].  Returns {req_id: next token}.
-        Unlike the reference, the batch is not padded to ``max_batch``
-        (the padding only spared ``jax.jit`` a recompile per batch size;
-        the real rows' outputs are the same either way)."""
+
+        The moe family's batch is padded to ``max_batch`` by repeating
+        the last row, as the reference pads every batch: the experts'
+        capacity grows with the batch's token count, so an unpadded
+        batch could drop assignments the reference keeps.  The padded
+        rows come after the real rows in the routing order, so they take
+        no real row's capacity, and name the last row's KV slot, where
+        the model writes the real row's k/v (``forward_decode_paged``).
+        A dense or vlm row's output does not depend on the other rows,
+        so their batch is not padded."""
         toks, poss, bts, sids, soffs = [], [], [], [], []
         for rid in ids:
             st = self.mgr.seqs[rid]
@@ -192,6 +203,9 @@ class ServingEngine:
             sids.append(slot)
             soffs.append(off)
             bts.append(self.mgr.block_table(rid, self.max_blocks))
+        if self.cfg.family == "moe":
+            for rows in (toks, poss, sids, soffs, bts):
+                rows.extend(rows[-1:] * (self.max_batch - len(rows)))
         t_step = time.perf_counter()
         logits, _, _ = self.api.decode_paged(
             self.params, self._tensor(toks, torch.long)[:, None],

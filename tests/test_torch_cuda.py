@@ -1,6 +1,7 @@
 """The port's Hopper kernels (``cache_sim``, ``s3fifo_sim``,
 ``simple_sim``, ``flash_attention``, ``paged_attention``, ``mamba_scan``)
-against their plain PyTorch versions, on a card.
+against their plain PyTorch versions, on a card, and the moe and vlm
+models on the card against the port on the CPU.
 Every test here is marked ``cuda`` and skips without one.
 
 This file imports nothing of JAX or ``repro``, so it runs on a machine
@@ -612,6 +613,9 @@ FLASH_SHAPES = [  # B, S, H, Hkv, hd, causal: tests/test_kernels.py, granite,
     (3, 130, 4, 4, 64, False),
     (2, 333, 4, 4, 80, True),
     (1, 77, 4, 2, 32, False),
+    (2, 200, 8, 1, 112, True),   # kimi-k2's head_dim: TMA's zeros past 112
+    (1, 130, 4, 4, 112, False),
+    (1, 300, 16, 16, 128, True),  # olmoe's 16/16 heads
 ]
 FUSED_SHAPES = [  # B, S, H, hd: q/k/v views of one (B, S, 3, H, hd) tensor
     (4, 300, 8, 80),
@@ -626,6 +630,8 @@ PAGED_SHAPES = [  # B, H, Hkv, d, N, bs, nb: tests/test_kernels.py, granite,
     (8, 32, 8, 128, 1024, 16, 160),
     (4, 8, 8, 128, 256, 16, 40),
     (3, 32, 2, 128, 256, 16, 40),
+    (4, 64, 8, 112, 256, 16, 40),   # kimi-k2: 7 k-steps of 16
+    (3, 16, 16, 128, 64, 16, 8),    # olmoe
 ]
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 3e-2)}
 
@@ -781,3 +787,64 @@ def test_paged_attention_kernel_at_split_and_page_boundaries(bs, dtype,
     want = paged_attention_plain(q, kp, vp, bt, lens)
     tol = ATTN_TOL[dtype][1]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# -- the moe and vlm models on the card ------------------------------------------
+
+
+def _family(arch: str, **kw):
+    """(cfg, params on the CPU): the reduced ``arch`` in fp32, random
+    params from a seeded generator."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import build
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), **kw)
+    return cfg, build(cfg).init(torch.Generator().manual_seed(0),
+                                device="cpu")
+
+
+def _on(params, device):
+    from repro_torch.models import layers as L
+    return L.tree_map(lambda t: t.to(device), params)
+
+
+@pytest.mark.cuda
+def test_moe_engine_on_the_card_equals_the_cpu(cuda_device):
+    """The padded moe decode on the card (16 experts, top-2, 6 rows of one
+    prompt at max_batch 16: the capacity binds on the padded rows, which
+    name the last real row's slot) gives the CPU's tokens, and all six
+    requests agree."""
+    from repro_torch.models.model import build
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg, params = _family("olmoe-1b-7b", n_experts=16)
+    prompt = [int(t) for t in np.random.default_rng(5).integers(0, 512, 13)]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServingEngine(build(cfg), _on(params, dev), block_size=8,
+                            hbm_blocks=64, max_batch=16, device=dev)
+        done = eng.run([Request(i, list(prompt), max_new=6)
+                        for i in range(6)])
+        out[str(dev)] = {c.req_id: c.tokens for c in done}
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert card == cpu
+    assert all(card[i] == card[0] for i in range(6))
+
+
+@pytest.mark.cuda
+def test_vlm_patch_prefill_on_the_card_equals_the_cpu(cuda_device):
+    from repro_torch.models.model import build
+
+    cfg, params = _family("llava-next-mistral-7b")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)))
+    pe = torch.from_numpy(rng.normal(0, 1, (2, cfg.n_patches, cfg.d_model))
+                          .astype(np.float32))
+    api = build(cfg)
+    want, wc = api.prefill(params, toks, full_logits=True, patch_embeds=pe)
+    got, gc = api.prefill(_on(params, cuda_device), toks.to(cuda_device),
+                          full_logits=True, patch_embeds=pe.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(gc.k.cpu(), wc.k, atol=1e-4, rtol=1e-4)

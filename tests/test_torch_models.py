@@ -1,12 +1,14 @@
-"""The port's dense transformer against the reference, on the CPU.
+"""The port's transformer against the reference, on the CPU.
 
-For each of the four dense configs, reduced: the reference's params
-(``init_params(cfg, PRNGKey(0))``) are carried into the port with
-``params_from_numpy``; ``forward_prefill`` logits and KV and
-``forward_decode_paged`` logits and updated pools must equal the
-reference's to 1e-5 (fp32; the port's attention runs the kernels'
-plain versions, whose fp32 softmax matches the reference's einsum to
-rounding).
+For each of the four dense configs, the vlm ``llava-next-mistral-7b``
+and the moe ``olmoe-1b-7b`` and ``kimi-k2-1t-a32b``, reduced: the
+reference's params (``init_params(cfg, PRNGKey(0))``) are carried into
+the port with ``params_from_numpy``; ``forward_prefill`` logits and KV
+(the vlm's with patch embeddings too) and ``forward_decode_paged``
+logits and updated pools must equal the reference's to 1e-5 (fp32; the
+port's attention runs the kernels' plain versions, whose fp32 softmax
+matches the reference's einsum to rounding; the moe prefill drops
+assignments at its capacity, which both packages must drop alike).
 """
 
 import jax
@@ -23,7 +25,8 @@ from repro_torch.models import transformer as PT
 from repro_torch.models.model import (build, params_from_numpy,
                                       params_to_numpy)
 
-ARCHS = ["granite-3-8b", "olmo-1b", "phi3-medium-14b", "chatglm3-6b"]
+ARCHS = ["granite-3-8b", "olmo-1b", "phi3-medium-14b", "chatglm3-6b",
+         "llava-next-mistral-7b", "olmoe-1b-7b", "kimi-k2-1t-a32b"]
 TOL = 1e-5
 CPU = "cpu"
 
@@ -65,6 +68,32 @@ def test_prefill_equals_reference(pair):
     assert cache.length == 21
     last, _ = PT.forward_prefill(cfg, params, torch.from_numpy(tokens))
     _close(last, jlogits[:, -1:])
+
+
+def test_vlm_prefill_with_patches_equals_reference():
+    jcfg = j_reduced(j_get_config("llava-next-mistral-7b"))
+    jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = reduced(get_config("llava-next-mistral-7b"))
+    params = params_from_numpy(
+        cfg, jax.tree_util.tree_map(np.asarray, jparams), device=CPU)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab, (2, 11))
+    pe = rng.normal(0, 1, (2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    jlogits, jcache = JT.forward_prefill(
+        jcfg, jparams, {"tokens": jnp.asarray(tokens, jnp.int32),
+                        "patch_embeds": jnp.asarray(pe)}, full_logits=True)
+    logits, cache = build(cfg).prefill(
+        params, torch.from_numpy(tokens), full_logits=True,
+        patch_embeds=torch.from_numpy(pe))
+    assert logits.shape == (2, cfg.n_patches + 11, cfg.vocab)
+    _close(logits, jlogits)
+    _close(cache.k, jcache.k)
+    _close(cache.v, jcache.v)
+    assert cache.length == cfg.n_patches + 11
+    with pytest.raises(ValueError, match="no patch frontend"):
+        PT.embed_inputs(reduced(get_config("granite-3-8b")),
+                        params["embed"], torch.from_numpy(tokens),
+                        torch.from_numpy(pe))
 
 
 def test_decode_paged_equals_reference(pair):
@@ -120,8 +149,9 @@ def test_port_init_has_the_reference_tree_and_shapes(pair):
 def test_other_families_raise():
     import dataclasses
     cfg = dataclasses.replace(reduced(get_config("granite-3-8b")),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                              family="encdec")
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, item 11"):
         build(cfg)
     with pytest.raises(NotImplementedError):
         PT.forward_prefill(cfg, {}, torch.zeros(1, 4, dtype=torch.long))

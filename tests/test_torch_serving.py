@@ -4,7 +4,9 @@ The reduced ``granite-3-8b`` (fp32) with the reference's params carried
 across: the port's ``ServingEngine(device="cpu")`` and
 ``repro.serving.engine.ServingEngine`` serve the same requests, and the
 greedy tokens, ``pool.stats`` (hits, misses, swaps, drops) and the
-Clock2Q+ flow counters must be equal.  A token may differ only at a
+Clock2Q+ flow counters must be equal.  So must the reduced moe
+``olmoe-1b-7b`` and vlm ``llava-next-mistral-7b``, and the moe decode
+batch padded as the reference pads it.  A token may differ only at a
 near tie of the reference's own logits (top-2 margin < 1e-4), which the
 test checks; later tokens of that request are then not compared.
 
@@ -119,6 +121,59 @@ def test_eviction_equals_reference(models):
     assert snap.counters['pool_swaps_total{dir="out"}'] == stats.swap_out
     assert sum(v for k, v in snap.counters.items()
                if k.startswith("cache_flow_total")) == sum(flows.values())
+
+
+def _family_models(arch: str, **kw):
+    """``models`` of the reduced ``arch`` with config fields ``kw``."""
+    jcfg = dataclasses.replace(j_reduced(j_get_config(arch)), **kw)
+    japi = j_build(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(reduced(get_config(arch)), **kw)
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    return japi, jparams, build(cfg), params_from_numpy(cfg, tree,
+                                                        device=CPU)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llava-next-mistral-7b"])
+def test_family_engine_equals_reference(arch):
+    """Prefix sharing, eviction to the host tier and batches of 1-4 rows
+    (the moe decode is dropless at max_batch 4: capacity 4, top-2 of 8
+    experts; its prefill drops at capacity in both packages alike)."""
+    models = _family_models(arch)
+    rng = np.random.default_rng(6)
+    prefix = [int(t) for t in rng.integers(0, 512, 16)]
+    reqs = [Request(i, prefix + [int(t) for t in rng.integers(
+        0, 512, int(rng.integers(1, 10)))], max_new=4) for i in range(5)]
+    reqs += [Request(5, [int(t) for t in rng.integers(0, 512, 27)],
+                     max_new=3)]
+    jeng, peng = _engines(models, block_size=8, hbm_blocks=14, max_batch=4)
+    want, got = _serve(jeng, peng, reqs)
+    _same_tokens(models, {r.req_id: r.prompt for r in reqs}, want, got)
+    _same_pool(jeng, peng)
+    stats = peng.stats[0]
+    assert stats.hits > 0 and stats.swap_out > 0
+
+
+def test_moe_decode_batch_padded_as_reference():
+    """6 requests with one prompt at max_batch 16, on the reduced olmoe
+    with 16 experts and top-2: every row routes alike, so the decode
+    capacity binds.  Padded to 16 rows (the reference's T) it is 8 and
+    keeps the 6 real rows; unpadded it would be 4 and drop rows 4 and 5.
+    Requests 0-4 equal the reference's.  Request 5's KV slot is also the
+    10 padded rows', of which rows 8-15 lose their experts: the
+    reference's scatter lets the last of them overwrite row 5's k/v, so
+    its request 5 leaves its siblings' tokens; the port writes the real
+    row's k/v and all 6 requests agree (ROADMAP.md queue 3)."""
+    models = _family_models("olmoe-1b-7b", n_experts=16)
+    prompt = [int(t) for t in np.random.default_rng(5).integers(0, 512, 13)]
+    reqs = [Request(i, list(prompt), max_new=6) for i in range(6)]
+    jeng, peng = _engines(models, block_size=8, hbm_blocks=64, max_batch=16)
+    want, got = _serve(jeng, peng, reqs)
+    _same_pool(jeng, peng)
+    for rid in range(5):
+        assert got[rid] == want[rid], rid
+    assert all(got[rid] == got[0] for rid in range(6)), got
+    assert want[5] != want[0], "the reference's padded write did not show"
 
 
 def test_swap_in_equals_reference(models):
