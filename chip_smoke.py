@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's six paths on one CUDA card, through the hand-written
+Drives the port's paths on one CUDA card, through the hand-written
 Hopper kernels, all built from the sources under
 ``src/repro_torch/kernels/*/csrc/`` at first use (one ``nvcc`` each,
 started together):
@@ -35,7 +35,9 @@ started together):
   greedy ``decode`` steps): ``falcon-mamba-7b`` and ``zamba2-2.7b`` at
   full width and depth (random bf16 weights), Mamba1's selective scan
   through the ``mamba_scan`` kernel and the hybrid's shared attention
-  block through ``flash_attention``.  The scan kernel is held against
+  block through ``flash_attention`` (prefill) and ``paged_attention``
+  (decode, on its KV cache seen as one page a sequence).  The scan
+  kernel is held against
   its plain version (B and C strided as the model hands them over),
   ``flash_attention`` against its plain version on the shared block's
   own q, k, v at the hybrid's prefill shape, and each model's decode
@@ -49,7 +51,19 @@ started together):
   ``paged_attention``, which are also held against their plain versions
   at olmoe's 16/16 heads and kimi-k2's head_dim 112; olmoe's decode
   path against a teacher-forced prefill on a dropless fp32 cut, and
-  llava's patch prefill on the card against the port on the CPU.
+  llava's patch prefill on the card against the port on the CPU;
+* the contiguous-cache decode and the encoder-decoder through the model
+  API: ``granite-3-8b`` at full width and depth, one prefill and greedy
+  ``decode`` steps over its contiguous KV cache (``paged_attention`` on
+  the cache seen as one page a sequence), its decode and the buffered
+  decode (a ring committed to a head-major base) held against a
+  teacher-forced prefill and each other on a 4-layer fp32 cut; and
+  ``whisper-tiny`` at its published size on 8 clips of 1,500 stub frame
+  embeddings, the encoder, the decoder's prompt and its cross-attention
+  through ``flash_attention`` (Sq != Skv) and greedy decode through
+  ``paged_attention``, held against a teacher-forced prefill in fp32 and
+  the port on the CPU.  Both kernels are also held against their plain
+  versions on the one-page views and at whisper's shapes.
 
 Each phase prints one JSON line.  Then come the ``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -141,6 +155,12 @@ def pow2(n: int) -> int:
 
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 3e-2)}  # flash, paged
+# bf16 limit of the contiguous caches' one-page views and whisper's full
+# attention over 1,500 frames: |got - want| <= 1e-3 + 3e-2 |want|.  Outputs
+# that average 1,500 to 2,080 positions are about 0.03, so ATTN_TOL's 2e-2
+# to 3e-2 absolute would pass a kernel that lost a page's partial tail.
+NEW_BF16_TOL = (1e-3, 3e-2)             # atol, rtol
+WGMMA_KV_TILE = 128     # flash_attention.cu kBN: KV rows per bf16 tile
 SERVE = dict(block_size=16, hbm_blocks=1024, max_batch=8,
              max_blocks_per_seq=160)
 TOKEN_BUDGET = 16_384       # prefill tokens one scheduler tick may commit
@@ -151,11 +171,25 @@ CONSISTENCY_LAYERS = 4
 NEAR_TIE = 1e-3             # top-2 logit margin below which a flip is a tie
 
 
-def _err(got, want, tol: float):
-    """(max |got - want|, whether every element is within tol + tol|want|)."""
+def _err(got, want, tol: float, rtol: float | None = None):
+    """(max |got - want|, whether every element is within tol + rtol|want|;
+    ``rtol`` defaults to ``tol``)."""
+    rtol = tol if rtol is None else rtol
     diff = (got.float() - want.float()).abs()
-    return float(diff.max()), bool((diff <= tol + tol * want.float().abs())
+    return float(diff.max()), bool((diff <= tol + rtol * want.float().abs())
                                    .all())
+
+
+def limit_use(got, want, atol: float, rtol: float) -> float:
+    """max |got - want| / (atol + rtol|want|): above 1 fails the check."""
+    diff = (got.float() - want.float()).abs()
+    return float((diff / (atol + rtol * want.float().abs())).max())
+
+
+def new_shape_tol(dt: str, tol: float) -> tuple:
+    """(atol, rtol) of a one-page or whisper case: ``NEW_BF16_TOL`` in
+    bf16, ``tol`` for both in fp32."""
+    return NEW_BF16_TOL if dt == "bfloat16" else (tol, tol)
 
 
 def warm_ms(fn, flush, reps: int = 20) -> list:
@@ -206,14 +240,34 @@ def flash_bound(B, S, H, Hkv, d, causal, esize=2):
     return _bound(moved, 4 * B * H * d * (S * S / 2 if causal else S * S))
 
 
+# The contiguous caches' one-page views (``layers.decode_attention``):
+# B, S_max, H, Hkv, d and the lengths checked.  granite's dense_generate
+# cache (2,080 positions, a multiple of the 16-position chunk) and one of
+# 2,049 (no multiple); whisper's cross-attention over 1,500 frames (no
+# multiple) and its 448-position decoder cache at its first step's 5;
+# zamba2's shared block at head_dim 80 over hybrid_main's 2,080.
+ONE_PAGE_CASES = [(4, 2080, 32, 8, 128, (1, 2049, 2080)),
+                  (4, 2049, 32, 8, 128, (1, 2049)),
+                  (8, 1500, 6, 6, 64, (1500, 1)),
+                  (8, 448, 6, 6, 64, (5, 448)),
+                  (4, 2080, 32, 32, 80, (1, 2049))]
+# flash at Sq != Skv, full, and whisper's decoder prompt, causal: B, Sq,
+# Skv, H, Hkv, causal, hd (whisper-tiny: 6 heads of 64, 1,500 frames)
+CROSS_CASES = [(8, 1500, 1500, 6, 6, False, 64), (8, 4, 1500, 6, 6, False, 64),
+               (8, 448, 1500, 6, 6, False, 64), (8, 4, 4, 6, 6, True, 64)]
+
+
 def attn_kernels_vs_plain(dev):
     """Each attention kernel against its plain version on the card, fp32
     and bf16, at granite's widths, olmoe's 16/16 heads and kimi-k2's
-    64/8 heads at head_dim 112; returns the phase record."""
+    64/8 heads at head_dim 112; paged on the contiguous caches' one-page
+    views (``ONE_PAGE_CASES``) and flash at whisper-tiny's shapes, Sq !=
+    Skv (``CROSS_CASES``); returns the phase record."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+    from repro_torch.models import layers as L
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -241,27 +295,90 @@ def attn_kernels_vs_plain(dev):
             rec["paged"].append(dict(dtype=dt, B=8, H=H, Hkv=Hkv, d=d,
                                      bs=16, N=1024, nb=160, lengths=lens,
                                      tol=ATTN_TOL[dt][1], max_abs_err=err))
-    # (B, S, H, Hkv, causal, hd): granite's 32/8 heads, the hybrid's hd 80,
-    # olmoe's 16/16 heads, kimi-k2's 64/8 at hd 112 (TMA's zeros past 112)
-    cases = [(1, S, 32, 8, True, 128) for S in (1, 17, 128, 1000, 2048)]
-    cases += [(1, S, 32, 8, False, 128) for S in (1, 17, 128, 1000, 2048)]
-    cases += [(1, 1000, 32, 8, True, 80), (4, 1000, 32, 32, True, 64),
-              (4, 1000, 32, 32, True, 80), (1, 1000, 16, 16, True, 128),
-              (1, 1000, 64, 8, True, 112), (1, 2048, 64, 8, True, 112)]
-    for dt in ("float32", "bfloat16"):
-        for B, S, H, Hkv, causal, hd in cases:
+        for B, S_max, H, Hkv, d, lens in ONE_PAGE_CASES:
             g = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(
                 np.float32)).to(dev, getattr(torch, dt))
-            q, k, v = g(B, S, H, hd), g(B, S, Hkv, hd), g(B, S, Hkv, hd)
+            q, kc, vc = g(B, 1, H, d), g(B, S_max, Hkv, d), g(B, S_max, Hkv, d)
+            tables = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+            tol = new_shape_tol(dt, ATTN_TOL[dt][1])
+            for n in lens:
+                got = L.decode_attention(q, kc, vc, n)[:, 0]
+                want = paged_attention_plain(
+                    q[:, 0], kc, vc, tables,
+                    torch.full((B,), n, dtype=torch.int32, device=dev))
+                err, ok = _err(got, want, *tol)
+                require(ok, f"paged_attention {dt} on a one-page view B={B} "
+                            f"S_max={S_max} H={H} Hkv={Hkv} d={d} length {n} "
+                            f"!= plain (max err {err})")
+                # the planted fault: the kernel over the length cut to a
+                # whole chunk is what a kernel that dropped the partial
+                # last chunk returns; the check must reject it
+                fault_err = fault_use = None
+                if dt == "bfloat16" and n > pops.CHUNK and n % pops.CHUNK:
+                    cut = n - n % pops.CHUNK
+                    fault = L.decode_attention(q, kc, vc, cut)[:, 0]
+                    fault_err, fault_ok = _err(fault, want, *tol)
+                    fault_use = limit_use(fault, want, *tol)
+                    require(not fault_ok, f"the one-page check at B={B} "
+                            f"S_max={S_max} length {n} passes a kernel that "
+                            f"drops positions {cut}..{n - 1} (err "
+                            f"{fault_err})")
+                rec["paged"].append(dict(
+                    dtype=dt, B=B, H=H, Hkv=Hkv, d=d, bs=S_max, N=B, nb=1,
+                    lengths=[n] * B, view="one_page",
+                    splits=pops.plan_splits(B, Hkv, S_max),
+                    tol=list(tol), max_abs_err=err,
+                    limit_use=limit_use(got, want, *tol),
+                    dropped_tail_max_abs_err=fault_err,
+                    dropped_tail_limit_use=fault_use))
+    # (B, S, H, Hkv, causal, hd): granite's 32/8 heads, the hybrid's hd 80,
+    # olmoe's 16/16 heads, kimi-k2's 64/8 at hd 112 (TMA's zeros past 112)
+    # (B, Sq, Skv, H, Hkv, causal, hd)
+    cases = [(1, S, S, 32, 8, True, 128) for S in (1, 17, 128, 1000, 2048)]
+    cases += [(1, S, S, 32, 8, False, 128) for S in (1, 17, 128, 1000, 2048)]
+    cases += [(1, 1000, 1000, 32, 8, True, 80), (4, 1000, 1000, 32, 32, True, 64),
+              (4, 1000, 1000, 32, 32, True, 80),
+              (1, 1000, 1000, 16, 16, True, 128),
+              (1, 1000, 1000, 64, 8, True, 112),
+              (1, 2048, 2048, 64, 8, True, 112)] + CROSS_CASES
+    for dt in ("float32", "bfloat16"):
+        for B, S, Skv, H, Hkv, causal, hd in cases:
+            g = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(
+                np.float32)).to(dev, getattr(torch, dt))
+            q, k, v = g(B, S, H, hd), g(B, Skv, Hkv, hd), g(B, Skv, Hkv, hd)
             got = fops.flash_attention(q, k, v, causal=causal)
             want = flash_attention_plain(q, k, v, causal)
-            err, ok = _err(got, want, ATTN_TOL[dt][0])
-            require(ok, f"flash_attention {dt} B={B} S={S} H={H} Hkv={Hkv} "
-                        f"causal={causal} hd={hd} != plain (max err {err})")
-            rec["flash"].append(dict(dtype=dt, B=B, S=S, H=H, Hkv=Hkv,
-                                     hd=hd, causal=causal,
+            # whisper's attentions over 1,500 frames; its causal 4-token
+            # prompt averages at most 4 positions and keeps ATTN_TOL
+            whisper = (B, S, Skv, H, Hkv, causal, hd) in CROSS_CASES \
+                and not causal
+            tol = (new_shape_tol(dt, ATTN_TOL[dt][0]) if whisper
+                   else (ATTN_TOL[dt][0],) * 2)
+            err, ok = _err(got, want, *tol)
+            require(ok, f"flash_attention {dt} B={B} S={S} Skv={Skv} H={H} "
+                        f"Hkv={Hkv} causal={causal} hd={hd} != plain (max "
+                        f"err {err})")
+            # the planted fault: k/v cut to whole tiles is what a kernel
+            # that dropped the partial last KV tile returns
+            fault_err = fault_use = None
+            if whisper and dt == "bfloat16" and Skv > WGMMA_KV_TILE \
+                    and Skv % WGMMA_KV_TILE:
+                cut = Skv - Skv % WGMMA_KV_TILE
+                fault = fops.flash_attention(q, k[:, :cut].contiguous(),
+                                             v[:, :cut].contiguous(),
+                                             causal=False)
+                fault_err, fault_ok = _err(fault, want, *tol)
+                fault_use = limit_use(fault, want, *tol)
+                require(not fault_ok, f"the whisper flash check at Sq={S} "
+                        f"Skv={Skv} passes a kernel that drops positions "
+                        f"{cut}..{Skv - 1} (err {fault_err})")
+            rec["flash"].append(dict(dtype=dt, B=B, S=S, Skv=Skv, H=H,
+                                     Hkv=Hkv, hd=hd, causal=causal,
                                      route=fops.route(q.dtype),
-                                     tol=ATTN_TOL[dt][0], max_abs_err=err))
+                                     tol=list(tol), max_abs_err=err,
+                                     limit_use=limit_use(got, want, *tol),
+                                     dropped_tail_max_abs_err=fault_err,
+                                     dropped_tail_limit_use=fault_use))
     torch.cuda.synchronize()
 
     # the plain versions' times, at the bf16 check shapes, beside the
@@ -289,6 +406,11 @@ def attn_kernels_vs_plain(dev):
     rec["max_abs_err_hd112"] = dict(
         paged=max(r["max_abs_err"] for r in rec["paged"] if r["d"] == 112),
         flash=max(r["max_abs_err"] for r in rec["flash"] if r["hd"] == 112))
+    rec["max_abs_err_new_shapes"] = dict(
+        paged_one_page=max(r["max_abs_err"] for r in rec["paged"]
+                           if r.get("view") == "one_page"),
+        flash_whisper=max(r["max_abs_err"] for r in rec["flash"]
+                          if r["H"] == 6))
     rec["seconds"] = time.perf_counter() - t0
     return rec
 
@@ -1584,7 +1706,9 @@ SCAN_DT_RANK = 256          # falcon-mamba-7b's dt_rank: x_proj's leading cols
 GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 2048, 32
 PROFILE_STEPS = 8
 TF_PROMPT, TF_STEPS = 512, 8     # consistency: prompt length, decoded tail
-GEN_CONSISTENCY_LAYERS = {"falcon-mamba-7b": 4, "zamba2-2.7b": 12}
+GEN_CONSISTENCY_LAYERS = {"falcon-mamba-7b": 4, "zamba2-2.7b": 12,
+                          "granite-3-8b": CONSISTENCY_LAYERS}
+BUF_RING, BUF_STEPS = 4, 9       # dense_consistency: ring, buffered steps
 LOGIT_TOL, STATE_TOL = 2e-4, 1e-4  # relative to the reference's max |x|
 SFU_PER_CLK_SM = 16         # exponentials a clock per SM (special-function units)
 SM_CLOCK_HZ = 1.98e9        # H100 SXM maximum SM clock
@@ -1727,6 +1851,7 @@ def generate_main(dev, arch: str, phase: str):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.models.hybrid import n_shared_invocations
     from repro_torch.models.model import build
 
@@ -1752,7 +1877,7 @@ def generate_main(dev, arch: str, phase: str):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats(dev)
-    sops.launch_count = fops.launch_count = 0
+    sops.launch_count = fops.launch_count = pops.launch_count = 0
     t1 = time.perf_counter()
     logits, cache = api.prefill(params, prompts, max_len=max_len)
     tokens = [_greedy(logits)]
@@ -1768,16 +1893,20 @@ def generate_main(dev, arch: str, phase: str):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t1)
     launches = dict(mamba_scan=sops.launch_count,
-                    flash_attention=fops.launch_count)
+                    flash_attention=fops.launch_count,
+                    paged_attention=pops.launch_count)
     out = torch.cat(tokens, dim=1)
     require(bool(torch.isfinite(logits).all()) and
             out.shape == (GEN_BATCH, GEN_STEPS + 1) and
             bool(((out >= 0) & (out < cfg.vocab)).all()),
             f"{phase}: non-finite logits or tokens outside the vocabulary")
+    ssm = cfg.family in ("ssm", "hybrid")
     rec = dict(
         phase=phase, model=cfg.name, family=cfg.family,
-        n_layers=cfg.n_layers, d_model=cfg.d_model, d_inner=cfg.d_inner,
-        ssm_state=cfg.ssm_state, dtype=cfg.dtype,
+        n_layers=cfg.n_layers, d_model=cfg.d_model,
+        **(dict(d_inner=cfg.d_inner, ssm_state=cfg.ssm_state) if ssm else
+           dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.hd)), dtype=cfg.dtype,
         shared_invocations=(n_shared_invocations(cfg)
                             if cfg.family == "hybrid" else 0),
         n_params=_n_params(params), n_params_analytic=cfg.n_params(),
@@ -1818,7 +1947,8 @@ def generate_profile(dev, api, params, prompts):
         wall = time.perf_counter() - t0
     return dict(prefills=1, decode_steps=PROFILE_STEPS, **profile_summary(
         prof, wall, {"mamba_scan": "mamba_scan_kernel",
-                     "flash_attention": "flash_attention_kernel"}))
+                     "flash_attention": "flash_attention_kernel",
+                     "paged_attention": "paged_attention_kernel"}))
 
 
 def _rel_err(got, want) -> float:
@@ -1827,7 +1957,25 @@ def _rel_err(got, want) -> float:
         float(want.abs().max()) + 1e-30)
 
 
-def generate_consistency(dev, arch: str, phase: str):
+def greedy_picks(phase: str, got, want, pos0: int) -> list:
+    """Greedy picks of decode logits ``got`` against teacher-forced
+    logits ``want`` (B, T, V), positions from ``pos0``: fails on a
+    differing pick unless its top-2 margin is below ``NEAR_TIE``; returns
+    those near ties."""
+    top2 = torch.topk(want.float(), 2, dim=-1)
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    pick = got.argmax(-1)
+    mismatches, ties = [], []
+    for b, i in (pick != top2.indices[..., 0]).nonzero().tolist():
+        item = dict(seq=b, pos=pos0 + i, decode=int(pick[b, i]),
+                    prefill=int(top2.indices[b, i, 0]),
+                    margin=float(margin[b, i]))
+        (ties if item["margin"] < NEAR_TIE else mismatches).append(item)
+    require(not mismatches, f"{phase}: greedy picks differ {mismatches}")
+    return ties
+
+
+def generate_consistency(dev, arch: str, phase: str, buffered: int = 0):
     """The decode path against the prefill path on the whole model:
     ``arch`` at full width in fp32, depth cut.  ``prefill`` of a prompt
     less its last ``TF_STEPS`` tokens, then ``TF_STEPS`` teacher-forced
@@ -1835,7 +1983,8 @@ def generate_consistency(dev, arch: str, phase: str):
     at the same positions: logits within 2e-4 of max |logit|
     (tests/test_models.py's bound), the final states within 1e-4 of
     their max |x|, and greedy picks equal, near ties (top-2 margin <
-    1e-3) reported apart."""
+    1e-3) reported apart.  ``buffered``: also the buffered decode with a
+    ring of that many positions (``buffered_check``)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build
 
@@ -1864,26 +2013,228 @@ def generate_consistency(dev, arch: str, phase: str):
                                     f"logits (rel err {logit_err})")
     require(all(e <= STATE_TOL for e in state_err.values()),
             f"{phase}: decode states != prefill states {state_err}")
-    top2 = torch.topk(want.float(), 2, dim=-1)
-    margin = (top2.values[..., 0] - top2.values[..., 1])
-    pick = got.argmax(-1)
-    mismatches, ties = [], []
-    for b, i in (pick != top2.indices[..., 0]).nonzero().tolist():
-        item = dict(seq=b, pos=S - TF_STEPS - 1 + i, decode=int(pick[b, i]),
-                    prefill=int(top2.indices[b, i, 0]),
-                    margin=float(margin[b, i]))
-        (ties if item["margin"] < NEAR_TIE else mismatches).append(item)
-    require(not mismatches, f"{phase}: greedy picks differ {mismatches}")
+    ties = greedy_picks(phase, got, want, S - TF_STEPS - 1)
     rec = dict(phase=phase, model=cfg.name, dtype=cfg.dtype,
                reduced=[f"n_layers {full_cfg.n_layers} -> {n}"],
                batch=2, prompt_len=S, decode_steps=TF_STEPS,
-               positions_compared=int(pick.numel()), logit_rel_err=logit_err,
-               logit_tol=LOGIT_TOL, state_rel_err=state_err,
-               state_tol=STATE_TOL, mismatches=0, near_ties=ties,
-               near_tie_margin=NEAR_TIE,
+               positions_compared=int(got.shape[0] * got.shape[1]),
+               logit_rel_err=logit_err, logit_tol=LOGIT_TOL,
+               state_rel_err=state_err, state_tol=STATE_TOL, mismatches=0,
+               near_ties=ties, near_tie_margin=NEAR_TIE,
+               allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    del cache, fcache
+    if buffered:
+        rec["buffered"] = buffered_check(cfg, api, params, prompt, buffered)
+    rec["seconds"] = time.perf_counter() - t0
+    del params, api
+    torch.cuda.empty_cache()
+    return rec
+
+
+def buffered_check(cfg, api, params, prompt, R: int) -> dict:
+    """``forward_decode_buffered`` against the contiguous decode: one
+    prefill of the prompt less its last ``BUF_STEPS`` tokens, its cache
+    also copied into a head-major base with a ring of ``R``; then both
+    decodes teacher-forced over those tokens, the ring committed whenever
+    full (twice at R = 4): logits within ``LOGIT_TOL`` of the contiguous
+    decode's max |logit|."""
+    from repro_torch.models import transformer as T
+
+    S = prompt.shape[1]
+    S0 = S - BUF_STEPS
+    _, cache = api.prefill(params, prompt[:, :S0], max_len=S)
+    buf = T.to_buffered(cache, R)
+    want, got, commits = [], [], 0
+    for j in range(S0, S):
+        tok = prompt[:, j:j + 1]
+        if buf.buf_len == R:
+            buf = T.commit_buffer(cfg, buf)
+            commits += 1
+        logits, buf = T.forward_decode_buffered(cfg, params, tok, buf)
+        got.append(logits[:, -1])
+        logits, cache = api.decode(params, tok, cache)
+        want.append(logits[:, -1])
+    err = _rel_err(torch.stack(got, 1), torch.stack(want, 1))
+    require(commits == 2 and err <= LOGIT_TOL,
+            f"buffered decode != contiguous decode (rel err {err}, "
+            f"{commits} commits)")
+    return dict(ring=R, steps=BUF_STEPS, commits=commits,
+                base_len=buf.base_len, buf_len=buf.buf_len,
+                logit_rel_err=err, logit_tol=LOGIT_TOL)
+
+
+# -- the encoder-decoder (whisper-tiny) -------------------------------------------
+
+WHISPER = "whisper-tiny"
+ENC_BATCH, ENC_FRAMES = 8, 1500   # 8 clips of whisper's 30 s window
+ENC_MAX_LEN, ENC_STEPS = 448, 64  # whisper's text context; greedy steps
+SOT = (50258, 50259, 50359, 50363)  # <|startoftranscript|><|en|>
+#                                     <|transcribe|><|notimestamps|>
+ENC_TF_CLIPS, ENC_TF_STEPS = 2, 8  # encdec_consistency: clips, decoded tail
+
+
+def _audio(dev, B: int, cfg, dtype, seed: int):
+    """Stub frontend output: (B, ENC_FRAMES, d_model) unit-variance frame
+    embeddings from a seeded generator on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((B, ENC_FRAMES, cfg.d_model), generator=g,
+                       device=dev).to(dtype)
+
+
+def encdec_main(dev):
+    """whisper-tiny at its published size (4 + 4 layers, d 384, 6 heads of
+    64, vocab 51,865, bf16, random weights): ``ENC_BATCH`` clips of
+    ``ENC_FRAMES`` stub frame embeddings and the 4-token
+    start-of-transcript prompt through one ``prefill`` (the encoder, the
+    decoder's prompt and its cross-attention on the flash kernel), then
+    ``ENC_STEPS`` greedy ``decode`` steps over ``ENC_MAX_LEN`` positions
+    (both attentions on the paged kernel's one-page views).  Returns
+    (phase record, launches per kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.models import encdec as E
+
+    t0 = time.perf_counter()
+    cfg = get_config(WHISPER)
+    api, params, init_s, weight_bytes, init_peak = _init_model(dev, cfg)
+    audio = _audio(dev, ENC_BATCH, cfg, getattr(torch, cfg.dtype), 0)
+    prompt = torch.tensor([SOT] * ENC_BATCH, device=dev)
+    # warm-up, not counted: one clip, so the positions' tables are made
+    _, c = api.prefill(params, prompt[:1], audio_embeds=audio[:1], max_len=8)
+    api.decode(params, prompt[:1, :1], c)
+    del c
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    fops.launch_count = pops.launch_count = 0
+    t1 = time.perf_counter()
+    logits, cache = api.prefill(params, prompt, audio_embeds=audio,
+                                max_len=ENC_MAX_LEN)
+    tokens = [_greedy(logits)]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    prefill_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s = []
+    for _ in range(ENC_STEPS):
+        t1 = time.perf_counter()
+        logits, cache = api.decode(params, tokens[-1], cache)
+        tokens.append(_greedy(logits))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    launches = dict(flash_attention=fops.launch_count,
+                    paged_attention=pops.launch_count, cache_sim=0)
+    want = dict(flash_attention=cfg.n_enc_layers + 2 * cfg.n_layers,
+                paged_attention=ENC_STEPS * 2 * cfg.n_layers, cache_sim=0)
+    require(launches == want, f"encdec_main: launches {launches}, want "
+                              f"{want} (flash: each encoder layer, each "
+                              f"decoder layer's self- and cross-attention "
+                              f"once; paged: both a decoder layer a step)")
+    out = torch.cat(tokens, dim=1)
+    require(bool(torch.isfinite(logits).all()) and
+            out.shape == (ENC_BATCH, ENC_STEPS + 1) and
+            bool(((out >= 0) & (out < cfg.vocab)).all()) and
+            cache.length == len(SOT) + ENC_STEPS,
+            "encdec_main: non-finite logits, tokens outside the vocabulary "
+            "or a cache of the wrong length")
+    decode_peak = torch.cuda.max_memory_allocated(dev)
+    enc_ms = statistics.median(warm_ms(
+        lambda: E.encode(cfg, params, audio), None, 5))
+    rec = dict(
+        phase="encdec_main", model=cfg.name, family=cfg.family,
+        n_enc_layers=cfg.n_enc_layers, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.hd,
+        vocab=cfg.vocab, dtype=cfg.dtype,
+        n_params=_n_params(params), n_params_analytic=cfg.n_params(),
+        weights="random, torch.Generator(cuda).manual_seed(0)",
+        audio="stub frame embeddings, torch.Generator(cuda).manual_seed(0)",
+        batch=ENC_BATCH, frames=ENC_FRAMES, prompt=list(SOT),
+        max_len=ENC_MAX_LEN, decode_steps=ENC_STEPS, init_s=init_s,
+        encode_prefill_ms=1e3 * prefill_s, encode_ms_alone=enc_ms,
+        decode_step_ms_p50=_pct(step_s, 50),
+        decode_step_ms_p99=_pct(step_s, 99),
+        decode_tokens_per_s=ENC_BATCH * ENC_STEPS / sum(step_s),
+        weight_bytes=weight_bytes, init_peak_device_bytes=init_peak,
+        prefill_peak_device_bytes=prefill_peak,
+        decode_peak_device_bytes=decode_peak, launches=launches,
+        first_tokens=out[0, :8].tolist(), seconds=time.perf_counter() - t0)
+    del params, api, cache, logits, audio
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def encdec_consistency(dev):
+    """whisper-tiny at full size in fp32, ``ENC_TF_CLIPS`` clips: a prefill
+    of the prompt less its last ``ENC_TF_STEPS`` tokens, then those tokens
+    teacher-forced through ``decode``, each step's logits against a
+    prefill of the same prefix (whose last position is that step's)
+    within ``LOGIT_TOL`` of max |logit|, the final caches against the
+    whole prompt's prefill within ``STATE_TOL``, greedy picks equal (near
+    ties apart); then the whole prompt's prefill on the card against the
+    port on the CPU (the same params through numpy), logits and caches
+    within ``VLM_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import (build, params_from_numpy,
+                                          params_to_numpy)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(WHISPER), dtype="float32",
+                              param_dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(6)
+    audio = torch.from_numpy(rng.normal(
+        0, 1, (ENC_TF_CLIPS, ENC_FRAMES, cfg.d_model)).astype(np.float32))
+    toks = np.concatenate([np.array([SOT] * ENC_TF_CLIPS), rng.integers(
+        0, cfg.vocab, (ENC_TF_CLIPS, 2 * ENC_TF_STEPS))], axis=1)
+    prompt, a = torch.as_tensor(toks, device=dev), audio.to(dev)
+    S, S0 = prompt.shape[1], prompt.shape[1] - ENC_TF_STEPS
+    logits, cache = api.prefill(params, prompt[:, :S0], audio_embeds=a,
+                                max_len=S)
+    got, want = [], []
+    for j in range(S0, S):
+        logits, cache = api.decode(params, prompt[:, j:j + 1], cache)
+        got.append(logits[:, -1])
+        ref, _ = api.prefill(params, prompt[:, :j + 1], audio_embeds=a)
+        want.append(ref[:, -1])
+    got, want = torch.stack(got, 1), torch.stack(want, 1)
+    t1 = time.perf_counter()
+    full, fcache = api.prefill(params, prompt, audio_embeds=a, max_len=S)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    logit_err = _rel_err(got, want)
+    state_err = {f: _rel_err(getattr(cache, f), getattr(fcache, f))
+                 for f in ("k", "v", "xk", "xv")}
+    require(logit_err <= LOGIT_TOL, f"encdec_consistency: decode logits != "
+                                    f"prefill logits (rel err {logit_err})")
+    require(all(e <= STATE_TOL for e in state_err.values()),
+            f"encdec_consistency: decode caches != prefill caches "
+            f"{state_err}")
+    ties = greedy_picks("encdec_consistency", got, want, S0)
+    host = params_from_numpy(cfg, params_to_numpy(params), device="cpu")
+    t1 = time.perf_counter()
+    cpu, ccache = api.prefill(host, torch.from_numpy(toks),
+                              audio_embeds=audio, max_len=S)
+    cpu_s = time.perf_counter() - t1
+    cpu_err = _rel_err(full.cpu(), cpu)
+    cpu_state = {f: _rel_err(getattr(fcache, f).cpu(), getattr(ccache, f))
+                 for f in ("k", "v", "xk", "xv")}
+    require(cpu_err <= VLM_TOL and max(cpu_state.values()) <= VLM_TOL,
+            f"encdec_consistency: card != CPU (logits rel err {cpu_err}, "
+            f"caches {cpu_state}; tolerance {VLM_TOL})")
+    rec = dict(phase="encdec_consistency", model=cfg.name, dtype=cfg.dtype,
+               clips=ENC_TF_CLIPS, frames=ENC_FRAMES, prompt_len=S,
+               decode_steps=ENC_TF_STEPS,
+               positions_compared=int(got.shape[0] * got.shape[1]),
+               logit_rel_err=logit_err, logit_tol=LOGIT_TOL,
+               state_rel_err=state_err, state_tol=STATE_TOL, mismatches=0,
+               near_ties=ties, cpu_logit_rel_err=cpu_err, cpu_state_rel_err=cpu_state,
+               cpu_tol=VLM_TOL, card_prefill_s=card_s, cpu_prefill_s=cpu_s,
+               cpu_threads=torch.get_num_threads(),
                allow_tf32=torch.backends.cuda.matmul.allow_tf32,
                seconds=time.perf_counter() - t0)
-    del params, api, cache, fcache
+    del params, host, api, cache, fcache
     torch.cuda.empty_cache()
     return rec
 
@@ -3323,7 +3674,8 @@ def main() -> int:
     emit(scan_check)
     ssm = generate_main(dev, "falcon-mamba-7b", "ssm_main")
     ssm_launches = ssm["launches"]
-    want = dict(mamba_scan=ssm["n_layers"], flash_attention=0)
+    want = dict(mamba_scan=ssm["n_layers"], flash_attention=0,
+                paged_attention=0)
     require(ssm_launches == want, f"ssm_main: launches {ssm_launches}, want "
                                   f"{want} (one per layer, one prefill)")
     emit(ssm)
@@ -3332,10 +3684,12 @@ def main() -> int:
     emit(hyb_check)
     hyb = generate_main(dev, "zamba2-2.7b", "hybrid_main")
     hyb_launches = hyb["launches"]
-    want = dict(mamba_scan=0, flash_attention=hyb["shared_invocations"])
+    want = dict(mamba_scan=0, flash_attention=hyb["shared_invocations"],
+                paged_attention=GEN_STEPS * hyb["shared_invocations"])
     require(hyb_launches == want, f"hybrid_main: launches {hyb_launches}, "
                                   f"want {want} (one per shared-block "
-                                  f"invocation, one prefill)")
+                                  f"invocation, one prefill and each "
+                                  f"decode step)")
     emit(hyb)
     emit(generate_consistency(dev, "zamba2-2.7b", "hybrid_consistency"))
     st = mamba_scan_time(dev)
@@ -3350,8 +3704,24 @@ def main() -> int:
     vlm, vlm_launches = vlm_main(dev)
     emit(vlm)
     emit(vlm_consistency(dev))
+
+    # -- the contiguous-cache decode and the encoder-decoder -------------------------
+    dense = generate_main(dev, "granite-3-8b", "dense_generate")
+    want = dict(mamba_scan=0, flash_attention=dense["n_layers"],
+                paged_attention=GEN_STEPS * dense["n_layers"])
+    require(dense["launches"] == want,
+            f"dense_generate: launches {dense['launches']}, want {want} (one "
+            f"a layer, one prefill and each decode step)")
+    emit(dense)
+    emit(generate_consistency(dev, "granite-3-8b", "dense_consistency",
+                              buffered=BUF_RING))
+    enc, enc_launches = encdec_main(dev)
+    emit(enc)
+    emit(encdec_consistency(dev))
     family_launches = dict(moe_main=moe_launches, moe_wide=wide_launches,
-                           vlm_main=vlm_launches)
+                           vlm_main=vlm_launches,
+                           dense_generate=dense["launches"],
+                           encdec_main=enc_launches)
     by_family = {k: {p: n[k] for p, n in family_launches.items()}
                  for k in ("flash_attention", "paged_attention")}
 
@@ -3382,13 +3752,17 @@ def main() -> int:
              replaces="src/repro/kernels/paged_attention/paged_attention.py:30",
              launches=serve_launches["paged_attention"]
              + chaos_launches["paged_attention"]
+             + hyb_launches["paged_attention"]
              + sum(by_family["paged_attention"].values()),
              launches_by_path=dict(
                  serve_main=serve_launches["paged_attention"],
                  chaos_path=chaos_launches["paged_attention"],
+                 hybrid_main=hyb_launches["paged_attention"],
                  **by_family["paged_attention"]),
              max_abs_err=check["max_abs_err"]["paged"],
              max_abs_err_hd112=check["max_abs_err_hd112"]["paged"],
+             max_abs_err_one_page=check["max_abs_err_new_shapes"][
+                 "paged_one_page"],
              ms=pt["ms"],
              plain_ms=check["paged_plain_ms"], bound_ms=pt["bound_ms"],
              bound_by=pt["bound_by"], library_ms=pt["library_ms"],
@@ -3414,6 +3788,8 @@ def main() -> int:
                  serve_main=check["max_abs_err"]["flash"],
                  hybrid_main=hyb_check["max_abs_err"]),
              max_abs_err_hd112=check["max_abs_err_hd112"]["flash"],
+             max_abs_err_whisper=check["max_abs_err_new_shapes"][
+                 "flash_whisper"],
              ms=ft["ms"],
              plain_ms=check["flash_plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"],

@@ -1,12 +1,8 @@
 """Architecture registry: ``get_config("<arch-id>")`` plus reduced configs
 for CPU smoke tests (same family/topology, tiny dims).
 
-The port's own copy of ``repro.configs``.  It registers the
-architectures whose models the port runs: the four dense ones, the vlm
-``llava-next-mistral-7b``, the SSM ``falcon-mamba-7b``, the hybrid
-``zamba2-2.7b`` and the moe ``olmoe-1b-7b`` and ``kimi-k2-1t-a32b``;
-the encoder-decoder's config comes with its model (ROADMAP.md queue
-1)."""
+The port's own copy of ``repro.configs``: the same ten architectures,
+in the same order."""
 
 from __future__ import annotations
 
@@ -16,9 +12,11 @@ from typing import Dict
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ["chatglm3-6b", "olmo-1b", "granite-3-8b", "phi3-medium-14b",
-            "llava-next-mistral-7b", "zamba2-2.7b", "olmoe-1b-7b",
-            "kimi-k2-1t-a32b", "falcon-mamba-7b"]
+ARCH_IDS = [
+    "chatglm3-6b", "olmo-1b", "granite-3-8b", "phi3-medium-14b",
+    "llava-next-mistral-7b", "zamba2-2.7b", "whisper-tiny",
+    "olmoe-1b-7b", "kimi-k2-1t-a32b", "falcon-mamba-7b",
+]
 
 _MODULE_OF = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
               for a in ARCH_IDS}

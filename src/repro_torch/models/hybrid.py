@@ -4,9 +4,10 @@ invocations).
 
 The port of ``repro.models.hybrid``.  In the full forward the shared
 block's causal attention is the ``flash_attention`` kernel, as in the
-dense ``forward_prefill``; in decode it is the plain
-``layers.attention`` over the contiguous KV cache with ``kv_len``, as in
-the reference (which has no kernel there).
+dense ``forward_prefill``; in decode the shared block is the dense
+``transformer.block_decode`` (its attention ``layers.decode_attention``,
+the ``paged_attention`` kernel over the contiguous KV cache seen as one
+page a sequence; the reference's plain ``attention`` with ``kv_len``).
 
 Decode state: per-layer Mamba2 (conv, ssm) states + a KV cache per
 shared-block invocation (G = n_layers // shared_attn_every caches).
@@ -105,22 +106,6 @@ def _shared_block_full(cfg: ModelConfig, p: Dict, x, rope):
     return _attn_out(cfg, p, x, o), (k, v)
 
 
-def _shared_block_decode(cfg: ModelConfig, p: Dict, x, pos: int, kc, vc):
-    """One token at position ``pos`` against the contiguous cache kc/vc
-    (B, S_max, H_kv, hd).  Writes this token's k/v into kc/vc at ``pos``
-    in place (the reference returns updated copies) before attending
-    over the first pos + 1 positions."""
-    B = x.shape[0]
-    q, k, v = L.qkv_proj(cfg, p["attn"], L.make_norm(cfg)(x, p["ln1"]))
-    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    rope = L.rope_tables(posb, cfg.hd, cfg.rope_theta, cfg.rope_frac)
-    q, k = L.rotate(q, rope), L.rotate(k, rope)
-    kc[:, pos] = k[:, 0]
-    vc[:, pos] = v[:, 0]
-    o = L.attention(q, kc, vc, causal=False, kv_len=pos + 1)
-    return _attn_out(cfg, p, x, o)
-
-
 def forward_full(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                  collect_cache: bool = False, max_len: Optional[int] = None,
                  full_logits: bool = True):
@@ -166,6 +151,7 @@ def forward_decode(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     written in place at position ``cache.length``."""
     x = T.embed_tokens(cfg, params["embed"], tokens)
     pos = cache.length
+    rope = T.decode_rope(cfg, x.shape[0], pos, x.device)
     k_every = max(1, cfg.shared_attn_every)
     convs, ssms = [], []
     for g in range(n_shared_invocations(cfg)):
@@ -175,8 +161,8 @@ def forward_decode(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                                         cache.ssm[i])
             convs.append(cs)
             ssms.append(ss)
-        x = _shared_block_decode(cfg, params["shared"], x, pos, cache.k[g],
-                                 cache.v[g])
+        x = T.block_decode(cfg, params["shared"], x, pos, cache.k[g],
+                           cache.v[g], rope)
     logits = T.lm_logits(cfg, params["embed"], x)
     return logits, HybridCache(conv=torch.stack(convs),
                                ssm=torch.stack(ssms), k=cache.k, v=cache.v,

@@ -3,9 +3,13 @@
 The port of ``repro.models.layers``, function for function and with the
 same parameter layout: every weight keeps the ``(in, out)`` orientation
 of the reference, so a reference param tree copies across leaf for
-leaf.  Left out: ``_maybe_shard_scores``, ``attention_partial*`` and
-``merge_partials``, which serve the buffered decode path (ROADMAP.md
-queue 1).
+leaf.  ``decode_attention`` is the one place a contiguous KV cache is
+attended: it runs the ``paged_attention`` kernel on the cache seen as a
+pool of one page a sequence.  The buffered decode's partials
+(``attention_partial``, ``attention_partial_hs``, ``merge_partials``)
+are plain torch, as the reference computes them outside any Pallas
+kernel.  Left out: ``_maybe_shard_scores``, the identity without a
+device mesh (ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -191,6 +196,16 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_rep, dim=2)
 
 
+def _kv_valid(kv_len, Skv: int, device) -> torch.Tensor:
+    """The positions below ``kv_len`` (a scalar, or (B,) per sequence) as
+    a mask broadcastable against (B, H, Sq, Skv) scores."""
+    kv_len = torch.as_tensor(kv_len, device=device)
+    kpos = torch.arange(Skv, device=device)
+    if kv_len.dim() == 0:
+        return (kpos < kv_len)[None, None, None, :]
+    return (kpos[None] < kv_len[:, None])[:, None, None, :]
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, q_offset: int = 0,
               kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -200,8 +215,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset``: absolute position of q[0] (decode: cache length).
     ``kv_len``: optional valid kv length (scalar or (B,)) for masking a
     padded cache.  The model calls the kernels instead
-    (``kernels.flash_attention``, ``kernels.paged_attention``); this is
-    the reference's plain einsum path.
+    (``kernels.flash_attention``, ``decode_attention``); this is the
+    reference's plain einsum path.
     """
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -215,17 +230,96 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kpos = torch.arange(Skv, device=q.device)[None, :]
         mask = (kpos <= qpos)[None, None]
     if kv_len is not None:
-        kv_len = torch.as_tensor(kv_len, device=q.device)
-        kpos = torch.arange(Skv, device=q.device)
-        if kv_len.dim() == 0:
-            valid = (kpos < kv_len)[None, None, None, :]
-        else:  # per-sequence lengths (B,)
-            valid = (kpos[None] < kv_len[:, None])[:, None, None, :]
+        valid = _kv_valid(kv_len, Skv, q.device)
         mask = valid if mask is None else (mask & valid)
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_page_tables(B: int, device: torch.device) -> torch.Tensor:
+    # sequence b's one page is slot b; made once per (B, device)
+    return torch.arange(B, dtype=torch.int32, device=device)[:, None]
+
+
+def decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                     length: int) -> torch.Tensor:
+    """One decode token per sequence over one layer of a contiguous KV
+    cache: q (B, 1, H, hd); kc/vc (B, S_max, Hkv, hd), contiguous;
+    ``length`` (a Python int) valid positions -> (B, 1, H, hd).
+
+    ``attention(q, kc, vc, causal=False, kv_len=length)`` computed by the
+    ``paged_attention`` kernel on the cache seen, without a copy, as a
+    pool of B pages of S_max positions, sequence b's table naming page
+    b.  The range check is on the host, so the wrapper's device read of
+    the tables and lengths is skipped.  On CPU tensors the wrapper runs
+    its plain version."""
+    B, S_max, Hkv, hd = kc.shape
+    if not 1 <= length <= S_max:
+        raise ValueError(f"decode over {length} positions of a cache of "
+                         f"{S_max}")
+    lengths = torch.full((B,), length, dtype=torch.int32, device=q.device)
+    o = paged_ops.paged_attention(
+        q[:, 0], kc.view(B, S_max, Hkv, hd), vc.view(B, S_max, Hkv, hd),
+        _one_page_tables(B, q.device), lengths, validate=False)
+    return o[:, None]
+
+
+def _softmax_partial(s: torch.Tensor, kv_len):
+    """Masked scores (B, H, Sq, Skv) -> (m, p, l): the row max, the
+    unnormalised weights and their sum, in fp32."""
+    if kv_len is not None:
+        valid = _kv_valid(kv_len, s.shape[-1], s.device)
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return m, p, p.sum(dim=-1)
+
+
+def attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_len=None):
+    """Unnormalised attention partial for online-softmax merging: q
+    (B,Sq,H,hd), k/v (B,Skv,Hkv,hd) -> (o_un (B,Sq,H,hd), m (B,H,Sq),
+    l (B,H,Sq)), all fp32; the weights enter P V in ``q.dtype``."""
+    B, Sq, H, hd = q.shape
+    k = repeat_kv(k, H // k.shape[2])
+    v = repeat_kv(v, H // v.shape[2])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / np.sqrt(hd)
+    m, p, l = _softmax_partial(s, kv_len)
+    o_un = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)
+    return o_un.float(), m, l
+
+
+def attention_partial_hs(q: torch.Tensor, k_hs: torch.Tensor,
+                         v_hs: torch.Tensor, kv_len=None):
+    """``attention_partial`` over head-major K/V (B,Hkv,Skv,hd), the
+    query heads grouped (no repeated K/V)."""
+    B, Sq, H, hd = q.shape
+    Hkv, Skv = k_hs.shape[1], k_hs.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, hd)
+    s = torch.einsum("bqhgd,bhkd->bhgqk", qg.float(),
+                     k_hs.float()) / np.sqrt(hd)
+    m, p, l = _softmax_partial(s.reshape(B, H, Sq, Skv), kv_len)
+    pg = p.reshape(B, Hkv, G, Sq, Skv).to(q.dtype)
+    o_un = torch.einsum("bhgqk,bhkd->bqhgd", pg, v_hs)
+    return o_un.reshape(B, Sq, H, hd).float(), m, l
+
+
+def merge_partials(parts) -> torch.Tensor:
+    """Merge [(o_un, m, l), ...] online-softmax partials -> (B,Sq,H,hd)
+    fp32."""
+    m = parts[0][1]
+    for _, mi, _ in parts[1:]:
+        m = torch.maximum(m, mi)
+    num = den = 0.0
+    for o_un, mi, li in parts:
+        a = torch.exp(mi - m)                              # (B, H, Sq)
+        num = num + o_un * a.transpose(1, 2)[..., None]
+        den = den + (li * a).transpose(1, 2)[..., None]
+    return num / torch.clamp(den, min=1e-30)
 
 
 # -- MLPs --------------------------------------------------------------------------------

@@ -14,9 +14,11 @@ functions here take one layer's params.  As in the reference, Mamba1's
 ``A_log`` and Mamba2's ``A_log`` and ``dt_bias`` are fp32 whatever the
 parameter dtype (``FP32_LEAVES``).
 
-Left out: the opt-flag variants of ``mamba1_full`` (``mamba_seq_scan``,
-``mamba_bf16_scan``, ``mamba_chunk_override``; ROADMAP.md queue 1,
-item 10).
+The opt flags of ``mamba1_full`` (``models/opt_flags.py``):
+``mamba_seq_scan`` and ``mamba_chunk_override`` only reorder the
+reference's fp32 recurrence, which the kernel computes whatever they
+say; ``mamba_bf16_scan`` (dA and dBu rounded to bf16) is another
+function, refused (ROADMAP.md queue 1, item 17).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.models import layers as L
+from repro_torch.models import opt_flags
 from repro_torch.models.config import ModelConfig
 
 # The leaves that stay fp32 under any parameter dtype, by name.
@@ -126,7 +129,14 @@ def mamba1_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                 return_state: bool = False):
     """x: (B, S, D) -> (B, S, D).  The selective scan is the
     ``mamba_scan`` kernel.  ``return_state``: also return
-    (conv_state (B, K-1, din), ssm_state (B, din, N) fp32) for decode."""
+    (conv_state (B, K-1, din), ssm_state (B, din, N) fp32) for decode.
+    Under ``mamba_seq_scan`` or ``mamba_chunk_override`` the result is
+    the same; ``mamba_bf16_scan`` raises ``NotImplementedError``."""
+    if opt_flags.FLAGS.mamba_bf16_scan:
+        raise NotImplementedError(
+            "mamba_bf16_scan rounds dA and dBu to bf16, a different "
+            "function from the fp32 mamba_scan kernel's (ROADMAP.md queue "
+            "1, item 17)")
     xin, z, u, dt, Bc, Cc = _mamba1_inputs(cfg, p, x, None)
     y, h_last = scan_ops.mamba_scan(u, dt, Bc, Cc, p["A_log"])
     out = _mamba1_out(p, x, y, u, z)

@@ -3,23 +3,25 @@
 ``build(cfg)`` returns a ``ModelAPI`` with the functions its callers
 use:
   init(generator, device=None) -> params
-  prefill(params, tokens, full_logits=False[, max_len | patch_embeds])
-      -> (logits, cache)
+  prefill(params, tokens, ...) -> (logits, cache)
   decode(params, tokens, cache) -> (logits, cache)
   init_cache(batch, max_len, device=None) -> zeroed cache
   decode_paged(params, tokens, kpool, vpool, block_tables, lengths,
                slot_ids, slot_offs) -> (logits, kpool, vpool)
 
-Five families are ported.  The transformer families (dense, vlm with
-its patch frontend, moe with routed experts) serve through the paged
-KV pool (``decode_paged``); the vlm family's ``prefill`` takes the
-patch embeddings (``patch_embeds``, B x P x D), and the
-contiguous-cache ``decode`` and ``init_cache`` are queued and raise.
-The SSM family (falcon-mamba, Mamba1 blocks on the ``mamba_scan``
-kernel) and the hybrid family (zamba2, Mamba2 blocks plus one shared
-attention block) decode from their own state with ``decode``; like the
-reference's serving engine, the paged decode refuses them.  The training loss comes with the
-training slice; the encoder-decoder raises ``NotImplementedError``.
+Every family of the reference is ported.  The transformer families
+(dense, vlm with its patch frontend, moe with routed experts) prefill
+with ``prefill(params, tokens, full_logits=False, max_len=None,
+patch_embeds=None)`` (the vlm's patch embeddings B x P x D), decode
+over the contiguous KV cache with ``decode``, and serve through the
+paged KV pool with ``decode_paged``.  The SSM family (falcon-mamba,
+Mamba1 blocks on the ``mamba_scan`` kernel), the hybrid family (zamba2,
+Mamba2 blocks plus one shared attention block) and the encoder-decoder
+(whisper, ``prefill(params, tokens, audio_embeds, max_len=None)``,
+logits at the last position) decode from their own state with
+``decode``; like the reference's serving engine, the paged decode
+refuses them.  The training loss comes with the training slice
+(ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -30,20 +32,12 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import hybrid
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-
-# Where the families the port does not run yet are queued.
-_QUEUED = {
-    "encdec": "ROADMAP.md queue 1, item 11 (models/encdec.py)",
-}
-_DENSE_DECODE = ("the transformer families' contiguous-cache decode "
-                 "(forward_decode, init_kv_cache) is ROADMAP.md queue 1, "
-                 "item 10; they serve through decode_paged")
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
@@ -67,17 +61,17 @@ def _raise(msg: str) -> Callable[..., Any]:
 # reference does.
 _FP32_LEAVES = {"dense": (), "vlm": (), "moe": ("router",),
                 "ssm": M.FP32_LEAVES["mamba1"],
-                "hybrid": M.FP32_LEAVES["mamba2"]}
+                "hybrid": M.FP32_LEAVES["mamba2"], "encdec": ()}
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict, device=None) -> Dict:
-    """The reference's params of any ported family (numpy leaves, blocks
+    """The reference's params of any family (numpy leaves, blocks
     stacked on a leading layer axis) as the port's, on the card unless
     ``device`` names another: values kept exactly, cast to the parameter
     dtype, except the leaves the reference keeps fp32."""
     keep = _FP32_LEAVES.get(cfg.family)
     if keep is None:
-        raise NotImplementedError(f"{cfg.family!r} is not ported")
+        raise ValueError(f"unknown family {cfg.family!r}")
     return L.tree_from_numpy(tree, L.pdtype_of(cfg), resolve_device(device),
                              keep)
 
@@ -161,19 +155,21 @@ def _hybrid_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 # ----------------------------------------------------------------------------
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    """The ``ModelAPI`` of ``cfg``; raises for a family not yet ported."""
+    """The ``ModelAPI`` of ``cfg``; ``ValueError`` for an unknown family."""
     fam = cfg.family
     if fam in T.FAMILIES:
         return ModelAPI(
             cfg=cfg,
             init=lambda generator, device=None: T.init_params(
                 cfg, generator, device),
-            prefill=lambda params, tokens, full_logits=False,
+            prefill=lambda params, tokens, full_logits=False, max_len=None,
                 patch_embeds=None: T.forward_prefill(
-                    cfg, params, tokens, full_logits=full_logits,
-                    patch_embeds=patch_embeds),
-            decode=_raise(_DENSE_DECODE),
-            init_cache=_raise(_DENSE_DECODE),
+                    cfg, params, tokens, max_len=max_len,
+                    full_logits=full_logits, patch_embeds=patch_embeds),
+            decode=lambda params, tokens, cache: T.forward_decode(
+                cfg, params, tokens, cache),
+            init_cache=lambda batch, max_len, device=None: T.init_kv_cache(
+                cfg, batch, max_len, device=device),
             decode_paged=lambda params, *args: T.forward_decode_paged(
                 cfg, params, *args))
     no_paged = _raise(
@@ -204,9 +200,16 @@ def build(cfg: ModelConfig) -> ModelAPI:
             init_cache=lambda batch, max_len, device=None: hybrid.init_cache(
                 cfg, batch, max_len, device),
             decode_paged=no_paged)
-    where = _QUEUED.get(fam)
-    if where is None:
-        raise ValueError(f"unknown family {fam!r}")
-    raise NotImplementedError(
-        f"the port runs the dense, vlm, moe, ssm and hybrid families; "
-        f"{fam!r} ({cfg.name}) is {where}")
+    if fam == "encdec":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda generator, device=None: E.init_params(
+                cfg, generator, device),
+            prefill=lambda params, tokens, audio_embeds, max_len=None:
+                E.forward_prefill(cfg, params, tokens, audio_embeds, max_len),
+            decode=lambda params, tokens, cache: E.forward_decode(
+                cfg, params, tokens, cache),
+            init_cache=lambda batch, max_len, device=None: E.init_cache(
+                cfg, batch, max_len, device),
+            decode_paged=no_paged)
+    raise ValueError(f"unknown family {fam!r}")

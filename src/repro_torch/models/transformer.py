@@ -7,20 +7,30 @@ orientation, so ``model.params_from_numpy`` is a plain copy of the
 reference's params.  A block's channel mixing (``_mix``) is the MLP, or
 for the moe family the routed experts of ``models/moe.py``; the vlm
 family prepends projected patch embeddings to the tokens
-(``embed_inputs``).  Two entry points serve the engine:
+(``embed_inputs``).  The entry points:
 
-  * ``forward_prefill`` — full-sequence causal forward returning the KV
-    cache; attention runs the ``flash_attention`` kernel.
+  * ``forward_prefill`` — full-sequence causal forward returning the
+    contiguous KV cache (``KVCache``, ``max_len`` positions); attention
+    runs the ``flash_attention`` kernel.
+  * ``forward_decode`` — one token per sequence against that cache,
+    written in place at the cache's length; attention runs the
+    ``paged_attention`` kernel on the cache seen as one page a sequence
+    (``layers.decode_attention``).
+  * ``forward_decode_buffered`` / ``commit_buffer`` — the same token
+    against a head-major base plus a small ring (``BufferedKVCache``),
+    merged by online softmax in plain torch, as in the reference.
   * ``forward_decode_paged`` — one token per sequence against the paged
-    KV pool; attention runs the ``paged_attention`` kernel.
+    KV pool of the serving engine; attention runs ``paged_attention``.
 
-``forward_train``, ``forward_decode`` and the buffered decode are
-ROADMAP.md queue 1 work (items 10 and 12).
+Where the reference's ``jax.lax.dynamic_update_slice`` clamps a write
+past the end of a cache onto its last slots, the port raises
+``ValueError`` (ROADMAP.md queue 3).  ``forward_train`` is ROADMAP.md
+queue 1, item 12.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -35,11 +45,33 @@ FAMILIES = ("dense", "vlm", "moe")
 
 
 class KVCache(NamedTuple):
-    """The prefill's KV cache: k/v (L, B, S, H_kv, hd) and its length."""
+    """The contiguous KV cache: k/v (L, B, S_max, H_kv, hd) and the
+    number of valid positions."""
 
     k: torch.Tensor
     v: torch.Tensor
     length: int
+
+
+class BufferedKVCache(NamedTuple):
+    """A head-major base that decode steps only read, and a small ring
+    that takes each step's k/v, committed to the base every R steps
+    (``commit_buffer``)."""
+
+    k: torch.Tensor      # (L, B, H_kv, S_max, hd): the base
+    v: torch.Tensor
+    bk: torch.Tensor     # (L, B, R, H_kv, hd): the ring
+    bv: torch.Tensor
+    base_len: int        # valid positions in the base
+    buf_len: int         # valid positions in the ring
+
+
+def _check_room(what: str, end: int, size: int) -> None:
+    # the reference's dynamic_update_slice would clamp the write onto the
+    # last slots; the port refuses it
+    if end > size:
+        raise ValueError(f"{what} would write up to position {end} of a "
+                         f"cache of {size}")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -47,6 +79,42 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"the transformer runs the {', '.join(FAMILIES)} families, not "
             f"{cfg.family!r} ({cfg.name})")
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  device=None) -> KVCache:
+    """A zeroed cache of ``max_len`` positions, on the card unless
+    ``device`` names another; k and v are separate tensors (decode
+    writes them in place)."""
+    _check_family(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    dev, dt = resolve_device(device), L.dtype_of(cfg)
+    return KVCache(torch.zeros(shape, dtype=dt, device=dev),
+                   torch.zeros(shape, dtype=dt, device=dev), 0)
+
+
+def init_buffered_cache(cfg: ModelConfig, batch: int, max_len: int,
+                        buf_len: int = 256, device=None) -> BufferedKVCache:
+    """A zeroed ``BufferedKVCache``: a base of ``max_len`` positions and
+    a ring of ``buf_len``."""
+    _check_family(cfg)
+    dev, dt = resolve_device(device), L.dtype_of(cfg)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    bshape = (cfg.n_layers, batch, buf_len, cfg.n_kv_heads, cfg.hd)
+    z = lambda s: torch.zeros(s, dtype=dt, device=dev)
+    return BufferedKVCache(z(shape), z(shape), z(bshape), z(bshape), 0, 0)
+
+
+def to_buffered(cache: KVCache, buf_len: int) -> BufferedKVCache:
+    """A prefill's ``KVCache`` as a ``BufferedKVCache``: its k/v copied
+    into the head-major base, ``base_len`` its length, an empty ring of
+    ``buf_len`` positions."""
+    L_, B, _, Hkv, hd = cache.k.shape
+    ring = (L_, B, buf_len, Hkv, hd)
+    z = lambda: cache.k.new_zeros(ring)
+    return BufferedKVCache(cache.k.transpose(2, 3).contiguous(),
+                           cache.v.transpose(2, 3).contiguous(), z(), z(),
+                           int(cache.length), 0)
 
 
 # -- params ------------------------------------------------------------------------
@@ -125,21 +193,23 @@ def _mix_residual(cfg: ModelConfig, p: Dict, x: torch.Tensor, decode: bool):
 
 
 def forward_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                    full_logits: bool = False, patch_embeds=None):
+                    max_len: Optional[int] = None, full_logits: bool = False,
+                    patch_embeds=None):
     """tokens (B, S) -> (logits, KVCache).  With ``patch_embeds`` (B, P,
     D; the vlm family) the sequence is the P projected patches followed
     by the S tokens, and the cache and full logits cover all P + S
-    positions.  Logits cover the last position only unless
-    ``full_logits`` (the serving engine's length-bucketed prefill reads
-    the last real token, not the last position).  Attention is the
-    ``flash_attention`` kernel, causal."""
+    positions.  The cache holds ``max_len`` positions (at least the
+    sequence's; zeros past it), as the reference pads it.  Logits cover
+    the last position only unless ``full_logits`` (the serving engine's
+    length-bucketed prefill reads the last real token, not the last
+    position).  Attention is the ``flash_attention`` kernel, causal."""
     _check_family(cfg)
     x = embed_inputs(cfg, params["embed"], tokens, patch_embeds)
     B, S, _ = x.shape
+    cache = init_kv_cache(cfg, B, max(max_len or S, S), device=x.device)
     positions = torch.arange(S, device=x.device).expand(B, S)
     rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.rope_frac)
     norm = L.make_norm(cfg)
-    ks, vs = [], []
     for i in range(cfg.n_layers):
         p = L.layer(params["blocks"], i)
         q, k, v = L.qkv_proj(cfg, p["attn"], norm(x, p["ln1"]))
@@ -147,10 +217,93 @@ def forward_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         o = flash_ops.flash_attention(q, k, v, causal=True)
         x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
         x = _mix_residual(cfg, p, x, decode=False)
-        ks.append(k)
-        vs.append(v)
+        cache.k[i, :, :S] = k
+        cache.v[i, :, :S] = v
     logits = lm_logits(cfg, params["embed"], x if full_logits else x[:, -1:])
-    return logits, KVCache(torch.stack(ks), torch.stack(vs), S)
+    return logits, cache._replace(length=S)
+
+
+def decode_rope(cfg: ModelConfig, B: int, pos: int, device):
+    """``layers.rope_tables`` of one decode step: every row at ``pos``."""
+    posb = torch.full((B, 1), pos, dtype=torch.int32, device=device)
+    return L.rope_tables(posb, cfg.hd, cfg.rope_theta, cfg.rope_frac)
+
+
+def block_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, pos: int,
+                 kc: torch.Tensor, vc: torch.Tensor, rope) -> torch.Tensor:
+    """One-token block at position ``pos``: kc/vc (B, S_max, H_kv, hd),
+    one layer of the cache, take this token's k/v at ``pos`` in place,
+    then ``layers.decode_attention`` attends over pos + 1 positions;
+    ``rope``: the step's ``layers.rope_tables``."""
+    B = x.shape[0]
+    q, k, v = L.qkv_proj(cfg, p["attn"], L.make_norm(cfg)(x, p["ln1"]))
+    q, k = L.rotate(q, rope), L.rotate(k, rope)
+    kc[:, pos] = k[:, 0]
+    vc[:, pos] = v[:, 0]
+    o = L.decode_attention(q, kc, vc, pos + 1)
+    x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+    return _mix_residual(cfg, p, x, decode=True)
+
+
+def forward_decode(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                   cache: KVCache):
+    """tokens (B, 1) -> (logits (B, 1, V), KVCache with length + 1).  The
+    cache's k/v are the same tensors, written in place at position
+    ``cache.length`` (the reference returns new arrays)."""
+    _check_family(cfg)
+    pos = int(cache.length)
+    _check_room("forward_decode", pos + 1, cache.k.shape[2])
+    x = embed_tokens(cfg, params["embed"], tokens)
+    rope = decode_rope(cfg, x.shape[0], pos, x.device)
+    for i in range(cfg.n_layers):
+        x = block_decode(cfg, L.layer(params["blocks"], i), x, pos,
+                         cache.k[i], cache.v[i], rope)
+    return lm_logits(cfg, params["embed"], x), KVCache(cache.k, cache.v,
+                                                       pos + 1)
+
+
+def forward_decode_buffered(cfg: ModelConfig, params: Dict,
+                            tokens: torch.Tensor, cache: BufferedKVCache):
+    """One decode token against base + ring: this step's k/v go into the
+    ring at ``buf_len`` in place, and attention is the online-softmax
+    merge of a partial over the base's ``base_len`` positions and one
+    over the ring's ``buf_len + 1``.  Returns (logits (B, 1, V), the
+    cache with ``buf_len + 1``)."""
+    _check_family(cfg)
+    _check_room("forward_decode_buffered's ring write", cache.buf_len + 1,
+                cache.bk.shape[2])
+    x = embed_tokens(cfg, params["embed"], tokens)
+    B = x.shape[0]
+    rope = decode_rope(cfg, B, cache.base_len + cache.buf_len, x.device)
+    norm = L.make_norm(cfg)
+    for i in range(cfg.n_layers):
+        p = L.layer(params["blocks"], i)
+        q, k, v = L.qkv_proj(cfg, p["attn"], norm(x, p["ln1"]))
+        q, k = L.rotate(q, rope), L.rotate(k, rope)
+        cache.bk[i, :, cache.buf_len] = k[:, 0]
+        cache.bv[i, :, cache.buf_len] = v[:, 0]
+        base = L.attention_partial_hs(q, cache.k[i], cache.v[i],
+                                      kv_len=cache.base_len)
+        ring = L.attention_partial(q, cache.bk[i], cache.bv[i],
+                                   kv_len=cache.buf_len + 1)
+        o = L.merge_partials([base, ring]).to(x.dtype)
+        x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+        x = _mix_residual(cfg, p, x, decode=True)
+    return (lm_logits(cfg, params["embed"], x),
+            cache._replace(buf_len=cache.buf_len + 1))
+
+
+def commit_buffer(cfg: ModelConfig, cache: BufferedKVCache
+                  ) -> BufferedKVCache:
+    """Flush the whole ring (R positions) into the base at ``base_len``,
+    transposed to the base's head-major layout, in place; run every R
+    steps.  Returns the cache with ``base_len + R`` and an empty ring."""
+    R = cache.bk.shape[2]
+    lo = cache.base_len
+    _check_room("commit_buffer", lo + R, cache.k.shape[3])
+    cache.k[:, :, :, lo:lo + R] = cache.bk.transpose(2, 3)
+    cache.v[:, :, :, lo:lo + R] = cache.bv.transpose(2, 3)
+    return cache._replace(base_len=lo + R, buf_len=0)
 
 
 def forward_decode_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,

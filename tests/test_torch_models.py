@@ -147,22 +147,42 @@ def test_port_init_has_the_reference_tree_and_shapes(pair):
 
 
 def test_other_families_raise():
+    """Every family of the reference is ported; one it does not know
+    raises ``ValueError``, as the reference's ``build`` does."""
     import dataclasses
     cfg = dataclasses.replace(reduced(get_config("granite-3-8b")),
-                              family="encdec")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 11"):
+                              family="speech")
+    with pytest.raises(ValueError, match="unknown family 'speech'"):
         build(cfg)
+    with pytest.raises(ValueError, match="unknown family"):
+        params_from_numpy(cfg, {}, device=CPU)
     with pytest.raises(NotImplementedError):
         PT.forward_prefill(cfg, {}, torch.zeros(1, 4, dtype=torch.long))
 
 
-def test_dense_contiguous_decode_raises():
-    api = build(reduced(get_config("granite-3-8b")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 10"):
-        api.decode({}, torch.zeros(1, 1, dtype=torch.long), None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 10"):
-        api.init_cache(1, 8, device=CPU)
+def test_dense_contiguous_decode_runs_and_refuses_past_max_len():
+    """The contiguous-cache decode runs (tests/test_torch_decode.py holds
+    it to the reference); past the cache's end it raises, where the
+    reference's dynamic_update_slice clamps onto the last slot."""
+    cfg = reduced(get_config("granite-3-8b"))
+    api = build(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device=CPU)
+    logits, cache = api.prefill(params, torch.zeros(1, 3, dtype=torch.long),
+                                max_len=4)
+    logits, cache = api.decode(params, torch.zeros(1, 1, dtype=torch.long),
+                               cache)
+    assert cache.length == 4 and logits.shape == (1, 1, cfg.vocab)
+    with pytest.raises(ValueError, match="position 5 of a cache of 4"):
+        api.decode(params, torch.zeros(1, 1, dtype=torch.long), cache)
+
+
+def test_arch_ids_equal_reference():
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS, all_configs
+    assert ARCH_IDS == J_ARCH_IDS
+    for arch, cfg in all_configs().items():
+        assert vars(cfg) == vars(j_get_config(arch))
+        build(cfg)                                   # every family builds
 
 
 @pytest.mark.parametrize("causal,kv_len", [(True, None), (False, None),
