@@ -63,7 +63,18 @@ started together):
   through ``flash_attention`` (Sq != Skv) and greedy decode through
   ``paged_attention``, held against a teacher-forced prefill in fp32 and
   the port on the CPU.  Both kernels are also held against their plain
-  versions on the one-page views and at whisper's shapes.
+  versions on the one-page views and at whisper's shapes;
+* training: ``olmo-1b`` at full width and depth (random bf16 weights)
+  trained through ``training.step.make_train_step`` on batches of 8 x
+  4,096 tokens from ``TokenPipeline`` (2 microbatches), each block
+  recomputed in the backward pass, attention's gradient the
+  hand-written ``flash_attention_bwd`` kernel, which is held against
+  its plain version given the plain lse (with planted faults that must
+  fail the limit) and timed beside SDPA's backward; a step of five
+  families on the card against the CPU; olmo-1b's bf16 gradients at 2
+  layers against its fp32 ones; the launcher resumed from a checkpoint
+  bit for bit;
+  falcon-mamba's loss refused on the card (the scan has no backward).
 
 Each phase prints one JSON line.  Then come the ``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -81,6 +92,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -605,8 +617,12 @@ def profile_summary(prof, wall: float, groups: dict) -> dict:
                                getattr(e, "self_cuda_time_total", 0.0))
     # "Command Buffer Full" is the tracer's mark of a full launch queue
     # (the host waiting on the device), not a kernel
+    # a CPU op's self device time repeats its kernels' (the autograd
+    # Functions launching through ctypes have one): count kernels only
+    cpu = torch.autograd.DeviceType.CPU
     kernels = sorted((e for e in prof.key_averages() if dev_us(e) > 0 and
                       not e.key.startswith("aten::") and
+                      getattr(e, "device_type", None) != cpu and
                       e.key != "Command Buffer Full"),
                      key=dev_us, reverse=True)
     queue_full = [e for e in prof.key_averages()
@@ -2507,6 +2523,7 @@ def policy_launchers(tree: str = None):
     host's part of the launch done at once, and a call that launches one
     kernel alone (and counts no launch), as ``present_cache_sim`` does.
     Also returns the two sources."""
+    import inspect
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.s3fifo_sim import build as s3b
     from repro_torch.kernels.s3fifo_sim import ops as s3o
@@ -2539,13 +2556,16 @@ def policy_launchers(tree: str = None):
         mods[name + ".source"] = str(old.SOURCE)
 
     def prepare(family, state, trace):
-        if family == "s3fifo":
-            _, w = s3o.check_state(state)
-            return lambda: mods["s3fifo_sim"].launch(
-                libs["s3fifo_sim"], state, trace, "counts", w)
-        _, w = smo.check_state(family, state)
-        return lambda: mods["simple_sim"].launch(
-            libs["simple_sim"], family, state, trace, "counts", w)
+        # later trees' launch takes the host view; the earliest do not
+        name = "s3fifo_sim" if family == "s3fifo" else "simple_sim"
+        mod = mods[name]
+        fam = () if family == "s3fifo" else (family,)
+        _, w = (s3o.check_state(state) if family == "s3fifo"
+                else smo.check_state(family, state))
+        view = (mod.host_view(*fam, state, trace),) if "view" in \
+            inspect.signature(mod.launch).parameters else ()
+        return lambda: mod.launch(libs[name], *fam, state, trace, "counts",
+                                  *view, w)
     return [mods["s3fifo_sim.source"], mods["simple_sim.source"]], prepare
 
 
@@ -3149,6 +3169,629 @@ def policy_kernel_row(name, times, cmp, evp, families, trace, all_traces,
         kernel_ms_at_plain_shape=sum(fams[f]["kernel_ms"] for f in families))
 
 
+# -- training: the flash backward kernel, olmo-1b, consistency, resume ---------
+
+# flash_attention_bwd.cu's KV tile: rows dropped by the planted fault
+BWD_KV_TILE = 64
+BWD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": NEW_BF16_TOL}  # atol, rtol
+# the forward kernel's lse in the backward cases at the card tests' limit
+# (test_torch_cuda.py); its out as attn_kernels_vs_plain holds it
+LSE_TOL = (1e-4, 1e-5)
+
+
+def bwd_fwd_tol(dt: str, causal: bool):
+    """The forward's out limit in a backward case: ``ATTN_TOL``, but
+    ``NEW_BF16_TOL`` for full (not causal) bf16 attention, as in
+    ``attn_kernels_vs_plain``.  A causal row over a few positions keeps
+    the bf16 rounding of P (about 2^-9 |v|) whole, over the new limit
+    (tests/test_torch_bwd_check.py)."""
+    return NEW_BF16_TOL if dt == "bfloat16" and not causal else ATTN_TOL[dt]
+# B, Sq, Skv, H, Hkv, hd, causal: olmo's training shape, granite's GQA,
+# zamba2's hd 80, kimi-k2's hd 112, whisper's encoder and cross-attention,
+# lengths off every tile
+FLASH_BWD_CASES = [(4, 4096, 4096, 16, 16, 128, True),
+                   (1, 2048, 2048, 32, 8, 128, True),
+                   (1, 2048, 2048, 32, 32, 80, True),
+                   (1, 1000, 1000, 64, 8, 112, True),
+                   (2, 1500, 1500, 6, 6, 64, False),
+                   (2, 448, 1500, 6, 6, 64, False),
+                   (1, 1, 1, 32, 8, 128, True), (1, 65, 65, 32, 8, 128, True),
+                   (1, 1000, 1000, 32, 8, 128, False)]
+FLASH_TRAIN_SHAPE = (4, 4096, 16, 16, 128)   # train_main's attention call
+TRAIN_ARCH = "olmo-1b"
+TRAIN_SEQ = 4096            # the reference's train_4k ShapeCell
+TRAIN_BATCH, TRAIN_MICRO = 8, 2   # train_4k's 256 cut to one card
+TRAIN_TIMED, TRAIN_REPEAT = 4, 16
+# AdamW's lr, near olmo-1b's published peak of 4e-4, and the 1-step warm-up
+# of the reference's loss-falls test
+TRAIN_LR, TRAIN_WARMUP = 5e-4, 1
+CE_FIRST_TOL = 0.5          # the first loss within 0.5 of ln(vocab)
+TRAIN_TOL = dict(loss=1e-5, grad=1e-4, grad_norm=1e-5)   # train_consistency
+CONSISTENCY_ARCHS = ("olmoe-1b-7b", "llava-next-mistral-7b", "zamba2-2.7b",
+                     "whisper-tiny")
+# train_bf16_grad: olmo-1b's width at 2 layers on a 2 x 4,096 batch; each
+# gradient leaf of the bf16 loss within 5 % (relative norm) of the fp32
+# loss's (tests/test_torch_bwd_check.py holds a narrow cut to half of it)
+BF16_GRAD_LAYERS, BF16_GRAD_BATCH = 2, 2
+BF16_GRAD_TOL = 0.05
+
+
+def flash_bwd_bound(B, Sq, Skv, H, Hkv, d, causal, esize=2):
+    """``_bound`` of one backward call: q, k, v, o, dO and lse read once,
+    dq, dk, dv written; 2.5 x the forward's 4 B H d (Sq Skv / 2 causal,
+    Sq Skv full) flops."""
+    moved = esize * (4 * B * Sq * H * d + 4 * B * Skv * Hkv * d) \
+        + 4 * B * H * Sq
+    return _bound(moved, 2.5 * 4 * B * H * d * Sq * Skv
+                  / (2 if causal else 1))
+
+
+def _bwd_case(dev, dt, case, rng):
+    """One backward case's tensors: q, k, v, dO from ``rng``; the forward
+    kernel's out and lse; the plain forward's out and lse on fp32 copies;
+    the kernel's (dq, dk, dv) from its own out and lse, and the plain
+    backward's from the kernel's out and the plain lse, so a wrong lse
+    cannot give the kernel and its oracle the same wrong P."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_lse_plain,
+        flash_attention_plain,
+    )
+
+    B, Sq, Skv, H, Hkv, hd, causal = case
+    g = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(
+        np.float32)).to(dev, getattr(torch, dt))
+    q, k, v, do = g(B, Sq, H, hd), g(B, Skv, Hkv, hd), g(B, Skv, Hkv, hd), \
+        g(B, Sq, H, hd)
+    o, lse = fops.flash_attention_fwd(q, k, v, causal)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    plain = (flash_attention_plain(qf, kf, vf, causal),
+             flash_attention_lse_plain(qf, kf, vf, causal))
+    got = fops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = flash_attention_bwd_plain(qf, kf, vf, o.float(), plain[1],
+                                     do.float(), causal)
+    return (q, k, v, o, lse, do), plain, got, want
+
+
+def bwd_case_check(dev, dt, case, rng) -> dict:
+    """``_bwd_case``'s limit uses: the forward kernel's out against the
+    plain forward (``bwd_fwd_tol``), its lse against the plain
+    log-sum-exp (``LSE_TOL``), its dq, dk, dv against the plain backward
+    (``BWD_TOL``); and for a bf16 case three planted faults, each of
+    which must use more than its check's limit: the backward with D =
+    rowsum(dO o O) left out (o given as zeros), with the last KV tile
+    dropped, and an lse stored in base 2 (lse log2 e), which fails the
+    lse check and, given to the backward, the gradient check."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    B, Sq, Skv, H, Hkv, hd, causal = case
+    (q, k, v, o, lse, do), (o_p, lse_p), got, want = _bwd_case(dev, dt, case,
+                                                              rng)
+    tol = BWD_TOL[dt]
+    grad_use = lambda gs: max(limit_use(a, w, *tol) for a, w in zip(gs, want))
+    rec = dict(
+        dtype=dt, B=B, Sq=Sq, Skv=Skv, H=H, Hkv=Hkv, hd=hd, causal=causal,
+        tol=list(tol), lse_tol=list(LSE_TOL),
+        out_tol=list(bwd_fwd_tol(dt, causal)),
+        out_limit_use=limit_use(o, o_p, *bwd_fwd_tol(dt, causal)),
+        lse_max_abs_err=float((lse - lse_p).abs().max()),
+        lse_limit_use=limit_use(lse, lse_p, *LSE_TOL),
+        max_abs_err=dict(zip(("dq", "dk", "dv"), (
+            float((a.float() - w).abs().max()) for a, w in zip(got, want)))),
+        limit_use=grad_use(got))
+    faults = {}
+    if dt == "bfloat16":
+        faults["no_delta"] = grad_use(fops.flash_attention_bwd(
+            q, k, v, torch.zeros_like(o), lse, do, causal))
+        cut = (Skv - 1) // BWD_KV_TILE * BWD_KV_TILE
+        if cut > 0:
+            dq_, dk_, dv_ = fops.flash_attention_bwd(
+                q, k[:, :cut].contiguous(), v[:, :cut].contiguous(), o, lse,
+                do, causal)
+            pad = lambda t: torch.cat([t, torch.zeros_like(k[:, cut:])], 1)
+            faults["dropped_kv_tile"] = grad_use((dq_, pad(dk_), pad(dv_)))
+        base2 = lse * math.log2(math.e)
+        faults["base2_lse"] = limit_use(base2, lse_p, *LSE_TOL)
+        faults["base2_lse_bwd"] = grad_use(fops.flash_attention_bwd(
+            q, k, v, o, base2, do, causal))
+    rec["fault_limit_use"] = faults
+    return rec
+
+
+def flash_bwd_vs_plain(dev):
+    """``bwd_case_check`` at ``FLASH_BWD_CASES``, fp32 and bf16: every
+    limit use at most 1, every planted fault's above 1.  Returns the
+    record."""
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    rec = dict(phase="flash_bwd_vs_plain", cases=[])
+    for dt in ("float32", "bfloat16"):
+        for case in FLASH_BWD_CASES:
+            c = bwd_case_check(dev, dt, case, rng)
+            require(c["out_limit_use"] <= 1.0 and c["lse_limit_use"] <= 1.0,
+                    f"flash_attention_fwd {dt} {case} != plain (out limit "
+                    f"use {c['out_limit_use']}, lse limit use "
+                    f"{c['lse_limit_use']})")
+            require(c["limit_use"] <= 1.0, f"flash_attention_bwd {dt} {case}"
+                    f" != plain (limit use {c['limit_use']}, max err "
+                    f"{c['max_abs_err']})")
+            for name, use in c["fault_limit_use"].items():
+                require(use > 1.0, f"the backward check at {case} passes a "
+                        f"kernel with its {name} fault (limit use {use})")
+            rec["cases"].append(c)
+    torch.cuda.synchronize()
+    cs = rec["cases"]
+    rec["max_abs_err"] = max(max(c["max_abs_err"].values()) for c in cs)
+    rec["max_limit_use"] = max(c["limit_use"] for c in cs)
+    rec["max_lse_abs_err"] = max(c["lse_max_abs_err"] for c in cs)
+    rec["max_lse_limit_use"] = max(c["lse_limit_use"] for c in cs)
+    rec["max_out_limit_use"] = max(c["out_limit_use"] for c in cs)
+    rec["min_fault_limit_use"] = {
+        f: min(c["fault_limit_use"][f] for c in cs
+               if f in c["fault_limit_use"])
+        for f in ("no_delta", "dropped_kv_tile", "base2_lse", "base2_lse_bwd")}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def flash_bwd_time(dev):
+    """CUDA-event medians at train_main's attention shape (bf16, causal),
+    L2 emptied by a 1 GiB read before each launch: the backward kernel
+    beside its bound, the plain backward and the backward of one
+    ``scaled_dot_product_attention`` call (the forward not timed; never
+    called by the port); and the forward kernel at ``FLASH_TIMED``'s main
+    shape with and without lse."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain,
+    )
+
+    rng = np.random.default_rng(24)
+    flush = torch.empty(256 << 20, dtype=torch.float32, device=dev)
+    B, S, H, Hkv, hd = FLASH_TRAIN_SHAPE
+    g = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    q, k, v, do = g(B, S, H, hd), g(B, S, Hkv, hd), g(B, S, Hkv, hd), \
+        g(B, S, H, hd)
+    o, lse = fops.flash_attention_fwd(q, k, v, True)
+    before = fops.bwd_launch_count
+    runs = warm_ms(lambda: fops.flash_attention_bwd(q, k, v, o, lse, do, True),
+                   flush, 10)
+    require(fops.bwd_launch_count == before + len(runs) + 1,
+            "timed backward call not one launch each")
+    bound, by, moved, ops_ = flash_bwd_bound(B, S, S, H, Hkv, hd, True)
+    plain = statistics.median(warm_ms(
+        lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, True),
+        flush, 2))
+    tq, tk, tv = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(tq, tk, tv, is_causal=True)
+        tdo = do.transpose(1, 2)
+        lib = statistics.median(warm_ms(lambda: torch.autograd.grad(
+            out, (tq, tk, tv), tdo, retain_graph=True), flush, 10))
+    del out, tq, tk, tv, q, k, v, do, o, lse
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S, H, Hkv, hd = FLASH_TIMED["main"]
+    q, k, v = g(B, S, H, hd), g(B, S, Hkv, hd), g(B, S, Hkv, hd)
+    fwd = [statistics.median(warm_ms(f, flush)) for f in (
+        lambda: fops.flash_attention(q, k, v, True),
+        lambda: fops.flash_attention_fwd(q, k, v, True),
+        lambda: fops.flash_attention_fwd(q, k, v, True),
+        lambda: fops.flash_attention(q, k, v, True))]
+    ms = statistics.median(runs)
+    return dict(
+        phase="flash_bwd_time",
+        bwd=dict(shape=f"bf16, B={FLASH_TRAIN_SHAPE[0]}, S={TRAIN_SEQ}, "
+                       f"H={FLASH_TRAIN_SHAPE[2]}, "
+                       f"Hkv={FLASH_TRAIN_SHAPE[3]}, "
+                       f"hd={FLASH_TRAIN_SHAPE[4]}, causal",
+                 ms_runs=runs, ms=ms, bytes=moved, ops=ops_, bound_ms=bound,
+                 bound_by=by, roofline_share=bound / ms,
+                 tflops=ops_ / ms / 1e9, plain_ms=plain, library_ms=lib,
+                 library="scaled_dot_product_attention(is_causal) backward "
+                         "through torch.autograd.grad, forward not timed",
+                 library_roofline_share=bound / lib),
+        fwd=dict(shape=f"bf16, B={B}, S={S}, H={H}, Hkv={Hkv}, hd={hd}, "
+                       f"causal",
+                 order="no lse, lse, lse, no lse",
+                 ms=[fwd[0], fwd[3]], ms_with_lse=[fwd[1], fwd[2]]),
+        l2_flush_bytes=flush.numel() * 4)
+
+
+def _train_batch(pipe, i: int, dev):
+    """The pipeline's batch ``i`` on the card, and its host seconds."""
+    t0 = time.perf_counter()
+    b = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(i).items()}
+    return b, time.perf_counter() - t0
+
+
+def repeat_losses(api, oc, pipe, dev, n: int) -> list:
+    """The losses of ``n`` steps (``TRAIN_MICRO`` microbatches, AdamW
+    ``oc``) of a fresh train state from seed 0 on the pipeline's batches
+    0 and 1 in turn: the model must fit them."""
+    from repro_torch.training import step as step_lib
+
+    step = step_lib.make_train_step(api, step_lib.RunConfig(
+        microbatches=TRAIN_MICRO, adamw=oc))
+    state = step_lib.init_train_state(
+        api, torch.Generator(device=dev).manual_seed(0), oc, device=dev)
+    out = []
+    for i in range(n):
+        batch, _ = _train_batch(pipe, i % 2, dev)
+        state, m = step(state, batch)
+        out.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    return out
+
+
+def train_main(dev):
+    """Full-width, full-depth olmo-1b (bf16, random weights) trained
+    through the port's entry points: ``make_train_step`` with 2
+    microbatches of 4 x 4,096 tokens from ``TokenPipeline``; a warm-up
+    step, ``TRAIN_TIMED`` timed steps and one profiled; then
+    ``repeat_losses``: ``TRAIN_REPEAT`` steps of a fresh state that
+    repeat 2 batches, the last loss below 0.9x the first.  Returns
+    (record, launches per kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.models.model import build
+    from repro_torch.training import optim, step as step_lib
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    api = build(cfg)
+    oc = optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    step = step_lib.make_train_step(api, step_lib.RunConfig(
+        microbatches=TRAIN_MICRO, adamw=oc))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    t0 = time.perf_counter()
+    state = step_lib.init_train_state(
+        api, torch.Generator(device=dev).manual_seed(0), oc, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = _n_params(state.params)
+    state_bytes = torch.cuda.memory_allocated(dev)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    fops.launch_count = fops.bwd_launch_count = 0
+    pops.launch_count = sops.launch_count = 0
+    steps, host_s = [], []
+    for i in range(1 + TRAIN_TIMED):
+        batch, hs = _train_batch(pipe, i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        steps.append(dict(step=i, ms=1e3 * (time.perf_counter() - t0),
+                          loss=float(m["loss"]),
+                          grad_norm=float(m["grad_norm"]),
+                          lr=float(m["lr"]), host_batch_ms=1e3 * hs))
+    per_step = dict(flash_attention=fops.launch_count // len(steps),
+                    flash_attention_bwd=fops.bwd_launch_count // len(steps))
+    batch, _ = _train_batch(pipe, 1 + TRAIN_TIMED, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof_rec = profile_summary(prof, wall, {
+        "flash_bwd": "flash_bwd::", "flash_fwd": "flash_attention_kernel"})
+    peak = torch.cuda.max_memory_allocated(dev)
+    hit_ratio, lookups = pipe.index_hit_ratio, pipe.lookups
+    del prof
+
+    del state, batch, m
+    gc.collect()
+    repeat = repeat_losses(api, oc, pipe, dev, TRAIN_REPEAT)
+    n_steps = len(steps) + 1 + TRAIN_REPEAT
+    launches = dict(flash_attention=fops.launch_count,
+                    flash_attention_bwd=fops.bwd_launch_count,
+                    paged_attention=pops.launch_count,
+                    mamba_scan=sops.launch_count)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    losses = [s["loss"] for s in steps] + repeat
+    ln_v = float(np.log(cfg.vocab))
+    want = dict(flash_attention=2 * TRAIN_MICRO * cfg.n_layers * n_steps,
+                flash_attention_bwd=TRAIN_MICRO * cfg.n_layers * n_steps,
+                paged_attention=0, mamba_scan=0)
+    require(all(np.isfinite(losses)), f"train_main: a loss is not finite "
+                                      f"({losses})")
+    require(abs(steps[0]["loss"] - ln_v) <= CE_FIRST_TOL,
+            f"train_main: first loss {steps[0]['loss']} not within "
+            f"{CE_FIRST_TOL} of ln {cfg.vocab} = {ln_v}")
+    require(repeat[-1] < 0.9 * repeat[0], f"train_main: the repeated "
+            f"batches' loss did not fall below 0.9x its first ({repeat})")
+    require(launches == want, f"train_main: launches {launches}, want {want}"
+            f" (a layer a microbatch a step: the forward twice, with the "
+            f"remat's recompute, the backward once)")
+    timed = [s["ms"] for s in steps[1:]]
+    p50 = statistics.median(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return dict(
+        phase="train_main", arch=cfg.name, n_params=n_params,
+        n_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+        vocab=cfg.vocab, dtype=cfg.dtype, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, microbatches=TRAIN_MICRO,
+        tokens_per_step=tokens, lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+        reduced=f"batch 256 -> {TRAIN_BATCH} (train_4k's global batch cut "
+                f"to one card), {len(steps) + 1 + TRAIN_REPEAT} steps",
+        init_s=init_s, state_bytes=state_bytes, steps=steps,
+        step_ms_p50=p50, step_ms_timed=timed, tokens_per_s=tokens / p50 * 1e3,
+        model_tflops=6 * n_params * tokens / (p50 / 1e3) / 1e12,
+        peak_device_bytes=peak, index_cache=dict(
+            hit_ratio=hit_ratio, lookups=lookups,
+            blocks=pipe.dc.index_cache_blocks),
+        first_loss=steps[0]["loss"], ln_vocab=ln_v,
+        repeat_from="a fresh state (seed 0), batches 0 and 1 in turn",
+        repeat_losses=repeat,
+        repeat_ratio=repeat[-1] / repeat[0], launches=launches,
+        launches_per_step=per_step, profile=prof_rec,
+        seconds=time.perf_counter() - t_phase), launches
+
+
+def grad_rel_errors(got, want) -> dict:
+    """{leaf path: |got - want| / |want|} (Frobenius norms, fp32) over two
+    gradient trees; a leaf whose ``want`` is all zeros gives 0.0 if
+    ``got``'s is too, else inf."""
+    out = {}
+    for (path, a), (_, w) in zip(_leaf_paths(got), _leaf_paths(want)):
+        a, w = a.float(), w.float()
+        n, d = float(w.norm()), float((a - w).norm())
+        out[path] = d / n if n else (0.0 if d == 0 else math.inf)
+    return out
+
+
+def train_bf16_grad(dev):
+    """The bf16 training gradient against the fp32 one: olmo-1b at full
+    width cut to ``BF16_GRAD_LAYERS`` layers, random params made in bf16
+    and the same values in fp32, one batch of ``BF16_GRAD_BATCH`` x
+    4,096 tokens.  The bf16 loss runs the sm90 forward kernel with its
+    lse and the backward kernel; the fp32 loss runs the CUDA-core
+    kernels, which ``train_consistency`` holds to the CPU.  Each leaf's
+    relative error must be within ``BF16_GRAD_TOL``; the bf16 gradients
+    with the forward's lse stored in base 2 (lse log2 e, a planted fault
+    in ``ops._launch``) must exceed it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.models.model import (
+        build, params_from_numpy, params_to_numpy,
+    )
+    from repro_torch.training import step as step_lib
+
+    t0 = time.perf_counter()
+    c16 = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=BF16_GRAD_LAYERS)
+    c32 = dataclasses.replace(c16, dtype="float32", param_dtype="float32")
+    a16, a32 = build(c16), build(c32)
+    p16 = a16.init(torch.Generator(device=dev).manual_seed(0), dev)
+    p32 = params_from_numpy(c32, params_to_numpy(p16), dev)
+    batch = make_batch(c16, ShapeCell("t", TRAIN_SEQ, BF16_GRAD_BATCH,
+                                      "train"), seed=6, device=dev)
+    l32, _, g32 = step_lib.value_and_grad(a32, p32, batch)
+    f0, b0 = fops.launch_count, fops.bwd_launch_count
+    l16, _, g16 = step_lib.value_and_grad(a16, p16, batch)
+    torch.cuda.synchronize()
+    launches = [fops.launch_count - f0, fops.bwd_launch_count - b0]
+    rel = grad_rel_errors(g16, g32)
+    del g16
+    launch = fops._launch
+
+    def base2(q, k, v, causal, lse):
+        o, lse_t = launch(q, k, v, causal, lse)
+        return o, None if lse_t is None else lse_t * math.log2(math.e)
+
+    fops._launch = base2
+    try:
+        _, _, gf = step_lib.value_and_grad(a16, p16, batch)
+    finally:
+        fops._launch = launch
+    fault = grad_rel_errors(gf, g32)
+    del gf, g32, p16, p32, a16, a32, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(launches == [2 * BF16_GRAD_LAYERS, BF16_GRAD_LAYERS],
+            f"train_bf16_grad: flash launches {launches}, want a forward "
+            f"and its remat recompute and a backward a layer")
+    require(max(rel.values()) <= BF16_GRAD_TOL, f"train_bf16_grad: bf16 "
+            f"gradients != fp32 beyond {BF16_GRAD_TOL} ({rel})")
+    require(max(fault.values()) > BF16_GRAD_TOL, f"train_bf16_grad: the "
+            f"check passes a base-2 lse ({fault})")
+    return dict(
+        phase="train_bf16_grad", arch=c16.name, n_layers=c16.n_layers,
+        d_model=c16.d_model, vocab=c16.vocab, batch=BF16_GRAD_BATCH,
+        seq_len=TRAIN_SEQ, tol=BF16_GRAD_TOL, loss_bf16=float(l16),
+        loss_fp32=float(l32), launches=launches, rel_err=rel,
+        max_rel_err=max(rel.values()), fault_rel_err=fault,
+        fault_max_rel_err=max(fault.values()),
+        seconds=time.perf_counter() - t0)
+
+
+def _consistency_cfg(arch: str):
+    """olmo-1b's width cut to 2 layers, or the reduced config, in fp32,
+    and its batch cell."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.config import ShapeCell
+
+    if arch == TRAIN_ARCH:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  dtype="float32", param_dtype="float32")
+        return cfg, ShapeCell("t", 256, 2, "train")
+    return reduced(get_config(arch)), ShapeCell("t", 32, 4, "train")
+
+
+def train_consistency(dev):
+    """One train step on the card against the same step of the port on
+    the CPU (plain versions), from the same numpy state and batch, for
+    olmo-1b's width cut to 2 layers and the reduced olmoe, llava, zamba2
+    and whisper (fp32): loss, every gradient leaf and grad_norm held to
+    ``TRAIN_TOL``."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models.model import build
+    from repro_torch.training import optim, step as step_lib
+
+    t0 = time.perf_counter()
+    oc = optim.AdamWConfig(lr=1e-3, warmup_steps=1)
+    rec = dict(phase="train_consistency", tol=TRAIN_TOL, models=[])
+    for arch in (TRAIN_ARCH,) + CONSISTENCY_ARCHS:
+        cfg, cell = _consistency_cfg(arch)
+        api = build(cfg)
+        tree = step_lib.train_state_to_numpy(step_lib.init_train_state(
+            api, torch.Generator().manual_seed(0), oc, device="cpu"))
+        batch = make_batch(cfg, cell, seed=5, device="cpu")
+        out = {}
+        for d in ("cpu", dev):
+            st = step_lib.train_state_from_numpy(cfg, tree, oc, device=d)
+            b0 = fops.bwd_launch_count
+            loss, _, grads = step_lib.value_and_grad(
+                api, st.params, {k: v.to(d) for k, v in batch.items()})
+            _, new_opt, om = optim.adamw_update(st.params, grads, st.opt, oc)
+            out[str(d)] = (float(loss), {p: g.float().cpu() for p, g in
+                                         _leaf_paths(grads)},
+                           float(om["grad_norm"]))
+            if d != "cpu":
+                torch.cuda.synchronize()
+                require(fops.bwd_launch_count > b0, f"train_consistency "
+                        f"{arch}: the card's step ran no backward kernel")
+        (lc, gc_, nc), (lg, gg, ng) = out["cpu"], out[str(dev)]
+        loss_rel = abs(lg - lc) / abs(lc)
+        norm_rel = abs(ng - nc) / abs(nc)
+        grad_use = max(float((gg[p] - g).abs().max())
+                       / (TRAIN_TOL["grad"] * float(g.abs().max()) + 1e-30)
+                       for p, g in gc_.items())
+        require(loss_rel <= TRAIN_TOL["loss"] and grad_use <= 1.0
+                and norm_rel <= TRAIN_TOL["grad_norm"],
+                f"train_consistency {arch}: loss rel {loss_rel}, gradient "
+                f"limit use {grad_use}, grad_norm rel {norm_rel}")
+        rec["models"].append(dict(
+            arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+            d_model=cfg.d_model, vocab=cfg.vocab, batch=cell.global_batch,
+            seq_len=cell.seq_len, loss=lg, loss_rel_err=loss_rel,
+            grad_limit_use=grad_use, grad_leaves=len(gc_),
+            grad_norm=ng, grad_norm_rel_err=norm_rel))
+        del api, out
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def train_resume(dev):
+    """``launch.train.main`` with its defaults (the reduced olmo-1b, fp32,
+    on the card) for 6 steps saving every 3, then again from the saved
+    step 3 in a second directory: the resumed run's final parameters and
+    moments equal the uninterrupted run's bit for bit.  And a bf16
+    reduced train state through ``CheckpointManager`` and back, bit for
+    bit."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build
+    from repro_torch.training import optim, step as step_lib
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        whole = launch_train.main(["--steps", "6", "--ckpt-every", "3",
+                                   "--ckpt", a])
+        os.makedirs(b)
+        shutil.copytree(os.path.join(a, "step_00000003"),
+                        os.path.join(b, "step_00000003"))
+        resumed = launch_train.main(["--steps", "6", "--ckpt-every", "3",
+                                     "--ckpt", b])
+        require(resumed["start"] == 3, f"train_resume: resumed from "
+                                       f"{resumed['start']}, not 3")
+        pairs = list(zip(_state_leaves(whole["state"]),
+                         _state_leaves(resumed["state"])))
+        diff = max(float((x.float() - y.float()).abs().max())
+                   for x, y in pairs)
+        equal = all(torch.equal(x, y) for x, y in pairs)
+        require(equal, f"train_resume: the resumed state differs from the "
+                       f"uninterrupted run's (max |diff| {diff})")
+        require(np.allclose(whole["losses"][3:], resumed["losses"], rtol=0,
+                            atol=0), "train_resume: losses of steps 3-5 "
+                                     "differ")
+
+        cfg = dataclasses.replace(reduced(get_config(TRAIN_ARCH)),
+                                  dtype="bfloat16", param_dtype="bfloat16")
+        oc = optim.AdamWConfig(moment_dtype="bfloat16")
+        st = step_lib.init_train_state(build(cfg), torch.Generator(
+            device=dev).manual_seed(1), oc, device=dev)
+        mgr = CheckpointManager(os.path.join(tmp, "bf16"))
+        mgr.save(1, st)
+        back = mgr.restore(1, st, device=dev, verify=True)
+        bf = list(zip(_state_leaves(st), _state_leaves(back)))
+        require(all(x.dtype == y.dtype and torch.equal(x, y) for x, y in bf)
+                and any(x.dtype == torch.bfloat16 for x, _ in bf),
+                "train_resume: a bf16 train state does not round-trip")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(phase="train_resume", steps=6, ckpt_every=3,
+                resumed_from=resumed["start"], losses=whole["losses"],
+                resumed_losses=resumed["losses"], bit_equal=equal,
+                max_abs_diff=diff, leaves=len(pairs),
+                bf16_round_trip=dict(leaves=len(bf), bit_equal=True),
+                seconds=time.perf_counter() - t0)
+
+
+def _leaf_paths(tree, pre=""):
+    """[(path, leaf)] of a tree of dicts (keys sorted) and namedtuples."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaf_paths(tree[k], f"{pre}/{k}")]
+    if hasattr(tree, "_fields"):
+        return [x for k in tree._fields
+                for x in _leaf_paths(getattr(tree, k), f"{pre}/{k}")]
+    return [(pre, tree)]
+
+
+def _state_leaves(state):
+    return [t for _, t in _leaf_paths(state)]
+
+
+def ssm_train_refused(dev):
+    """falcon-mamba's reduced loss with params that require grad must
+    raise on the card: the ``mamba_scan`` kernel has no backward yet."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.models.model import build
+    from repro_torch.training import step as step_lib
+
+    cfg = reduced(get_config("falcon-mamba-7b"))
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = make_batch(cfg, ShapeCell("t", 32, 4, "train"), seed=5,
+                       device=dev)
+    try:
+        step_lib.value_and_grad(api, params, batch)
+        message = None
+    except RuntimeError as e:
+        message = str(e)
+    require(message is not None and "mamba_scan" in message
+            and "item 19" in message,
+            f"ssm_train_refused: the loss did not raise ({message})")
+    return dict(phase="ssm_train_refused", arch=cfg.name, raised=True,
+                message=message)
+
+
 # -- the sharded service and the online tuner on the day-scale stream ---------
 
 SHARD_COUNTS = (2, 4, 8)    # benchmarks/shard.py::SHARD_COUNTS
@@ -3425,9 +4068,12 @@ def main() -> int:
     # -- device: the card, the toolchain, the kernel builds --------------------
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
+    # inference builds no graph; the training phases' steps turn grad on
+    torch.set_grad_enabled(False)
     t0 = time.perf_counter()
     kbuild.build_many([("cache_sim", build.SOURCE),
                        ("flash_attention", fops.SOURCE),
+                       ("flash_attention_bwd", fops.BWD_SOURCE),
                        ("paged_attention", pops.SOURCE),
                        ("mamba_scan", sops.SOURCE),
                        ("s3fifo_sim", s3build.SOURCE),
@@ -3438,8 +4084,9 @@ def main() -> int:
               nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
               build_s=build_s, builds={
                   k: kbuild.info(k) for k in
-                  ("cache_sim", "flash_attention", "paged_attention",
-                   "mamba_scan", "s3fifo_sim", "simple_sim")}))
+                  ("cache_sim", "flash_attention", "flash_attention_bwd",
+                   "paged_attention", "mamba_scan", "s3fifo_sim",
+                   "simple_sim")}))
 
     t0 = time.perf_counter()
     all_traces = suite_traces(traces)
@@ -3718,10 +4365,25 @@ def main() -> int:
     enc, enc_launches = encdec_main(dev)
     emit(enc)
     emit(encdec_consistency(dev))
+    # -- training: the flash backward kernel, olmo-1b, consistency ------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_check = flash_bwd_vs_plain(dev)
+    emit(bwd_check)
+    bt = flash_bwd_time(dev)
+    emit(bt)
+    train, train_launches = train_main(dev)
+    emit(train)
+    emit(train_consistency(dev))
+    emit(train_bf16_grad(dev))
+    emit(train_resume(dev))
+    emit(ssm_train_refused(dev))
+
     family_launches = dict(moe_main=moe_launches, moe_wide=wide_launches,
                            vlm_main=vlm_launches,
                            dense_generate=dense["launches"],
-                           encdec_main=enc_launches)
+                           encdec_main=enc_launches,
+                           train_main=train_launches)
     by_family = {k: {p: n[k] for p, n in family_launches.items()}
                  for k in ("flash_attention", "paged_attention")}
 
@@ -3790,7 +4452,8 @@ def main() -> int:
              max_abs_err_hd112=check["max_abs_err_hd112"]["flash"],
              max_abs_err_whisper=check["max_abs_err_new_shapes"][
                  "flash_whisper"],
-             ms=ft["ms"],
+             ms=ft["ms"], ms_with_lse=bt["fwd"]["ms_with_lse"],
+             ms_without_lse=bt["fwd"]["ms"],
              plain_ms=check["flash_plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"],
              ms_shape=ft["shape"],
@@ -3798,6 +4461,23 @@ def main() -> int:
                  "shape", "ms", "bound_ms", "bound_by", "library_ms")},
              plain_shape=check["plain_shapes"]["flash"],
              kernel_ms_at_plain_shape=check["flash_kernel_ms"]),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_bwd.cu",
+             replaces="no Pallas kernel: XLA's autodiff of "
+                      "src/repro/models/layers.py:128 attention",
+             launches=train_launches["flash_attention_bwd"],
+             launches_by_path=dict(
+                 train_main=train_launches["flash_attention_bwd"]),
+             max_abs_err=bwd_check["max_abs_err"],
+             max_limit_use=bwd_check["max_limit_use"],
+             max_lse_abs_err=bwd_check["max_lse_abs_err"],
+             min_fault_limit_use=bwd_check["min_fault_limit_use"],
+             ms=bt["bwd"]["ms"], plain_ms=bt["bwd"]["plain_ms"],
+             bound_ms=bt["bwd"]["bound_ms"], bound_by=bt["bwd"]["bound_by"],
+             library_ms=bt["bwd"]["library_ms"], ms_shape=bt["bwd"]["shape"],
+             plain_shape=bt["bwd"]["shape"],
+             ptxas=kbuild.info("flash_attention_bwd").get("ptxas")),
         dict(name="mamba_scan", route="cuda",
              source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
              replaces="src/repro/kernels/mamba_scan/mamba_scan.py:23",

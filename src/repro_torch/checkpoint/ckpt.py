@@ -4,8 +4,13 @@ The port's own copy of ``repro/checkpoint/ckpt.py``.  The directory
 layout, manifest keys, ``.npy`` leaves and digests are the reference's,
 so a step written by either package restores in the other.  Trees are
 dicts and namedtuples, walked here; a tensor leaf goes to the host with
-``.detach().cpu().numpy()``.  The reference's ``shardings=`` becomes
-``device=``: ``restore`` returns numpy leaves, or tensors on that device.
+``.detach().cpu().numpy()``.  A bf16 leaf is written as the reference
+writes one (numpy has no bf16: ``ml_dtypes`` gives the reference's): an
+``.npy`` of 2-byte void elements, descr ``'<V2'``, holding the bf16
+bits, manifest dtype ``"bfloat16"``, the digest of those bytes; it
+restores as a bf16 tensor.  The reference's ``shardings=`` becomes
+``device=``: ``restore`` returns numpy leaves (a bf16 leaf: a bf16 CPU
+tensor), or tensors on that device.
 
 Design for 1000+ nodes (DESIGN.md §6): every host writes only its
 addressable shards, keyed by (step, leaf-path, shard-index), plus a
@@ -60,10 +65,47 @@ def _map_tree(fn, tree: Any) -> Any:
     return fn(tree)
 
 
+# A bf16 leaf on the host: its bits as 2-byte void elements, the dtype
+# numpy reads the reference's bf16 .npy files as.
+BF16_HOST = np.dtype("V2")
+
+
 def _to_host(x: Any) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.contiguous().view(torch.int16).numpy().view(BF16_HOST)
+        return x.numpy()
     return np.asarray(x)
+
+
+def _save_leaf(path: Path, leaf: np.ndarray) -> str:
+    """Write ``leaf`` as .npy; returns its manifest dtype.  A bf16 leaf
+    gets the reference's header (descr '<V2'; numpy's own writer would
+    give '|V2')."""
+    if leaf.dtype != BF16_HOST:
+        np.save(path, leaf)
+        return str(leaf.dtype)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": "<V2", "fortran_order": False, "shape": leaf.shape})
+        f.write(np.ascontiguousarray(leaf).tobytes())
+    return "bfloat16"
+
+
+def _from_host(arr: np.ndarray, dtype: str, device) -> Any:
+    """A restored leaf: numpy, or a tensor on ``device``; a bf16 leaf is a
+    bf16 tensor (on the CPU unless ``device``).  A tensor is always a copy
+    in torch's own memory: one left on ``np.load``'s buffer has another
+    alignment, and the CPU's matrix products may then sum in another
+    order than on the tensors the state was saved from."""
+    if dtype == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                             ).view(torch.bfloat16)
+        return t.clone() if device is None else t.to(device, copy=True)
+    if device is None:
+        return arr
+    return torch.from_numpy(arr).to(device, copy=True)
 
 
 def _digest(arr: np.ndarray) -> str:
@@ -79,11 +121,15 @@ class CheckpointManager:
 
     # -- save ------------------------------------------------------------------
     def save(self, step: int, state: Any, blocking: bool = True) -> None:
+        """Write ``step``; with ``blocking`` False on a thread.  Either way
+        an earlier asynchronous save is finished first: the reference's
+        blocking save does not wait, and a blocking save of the step an
+        asynchronous one is still writing races it on the same files."""
         host_state = _map_tree(_to_host, state)
+        self.wait()
         if blocking:
             self._write(step, host_state)
         else:
-            self.wait()
             self._thread = threading.Thread(
                 target=self._write, args=(step, host_state), daemon=True)
             self._thread.start()
@@ -102,10 +148,9 @@ class CheckpointManager:
         manifest = {"step": step, "time": time.time(), "leaves": {}}
         for i, (path, leaf) in enumerate(_leaf_paths(host_state)):
             fn = f"leaf_{i:05d}.npy"
-            np.save(tmp / fn, leaf)
             manifest["leaves"][path] = {
                 "file": fn, "shape": list(leaf.shape),
-                "dtype": str(leaf.dtype), "digest": _digest(leaf)}
+                "dtype": _save_leaf(tmp / fn, leaf), "digest": _digest(leaf)}
         with open(tmp / "manifest.json", "w") as f:
             json.dump(manifest, f)
         if final.exists():
@@ -134,8 +179,9 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int], like: Any,
                 device=None, verify: bool = False) -> Any:
-        """Restore into the structure of ``like``: numpy leaves, or
-        tensors on ``device`` when one is named."""
+        """Restore into the structure of ``like``: numpy leaves (a bf16
+        leaf a bf16 tensor), or tensors on ``device`` when one is
+        named."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -161,9 +207,8 @@ class CheckpointManager:
             if list(arr.shape) != list(leaf_like.shape):
                 raise ValueError(f"shape mismatch for {path}: "
                                  f"{arr.shape} vs {leaf_like.shape}")
-            if device is not None:
-                arr = torch.from_numpy(arr).to(device)
-            out_leaves.append(arr)
+            out_leaves.append(_from_host(
+                arr, manifest["leaves"][path]["dtype"], device))
         return _unflatten_like(like, iter(out_leaves))
 
 

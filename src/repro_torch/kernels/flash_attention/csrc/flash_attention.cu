@@ -85,9 +85,9 @@ size_t smem_bytes(int hd) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
-    Strides sv, Strides so, int Sq, int Skv, int H, int Hkv, int hd,
-    float scale, int causal) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    Strides sq, Strides sk, Strides sv, Strides so, int Sq, int Skv, int H,
+    int Hkv, int hd, float scale, int causal) {
   extern __shared__ float smem[];
   float* Qt = smem;                       // [hd][kBQ], scaled
   float* Kt = Qt + hd * kBQ;              // [hd][kBK + 1]
@@ -203,6 +203,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const int r = q0 + ty * kRows + i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    // the row's log-sum-exp of the scaled scores (Q is pre-scaled)
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * Sq + r] = m[i] + logf(den);
     T* ob = o + b * so.b + (long long)r * so.s + h * so.h;
 #pragma unroll
     for (int c = 0; c < kOut; ++c) {
@@ -213,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const long long* st, int B, int Sq, int Skv, int H, int Hkv,
            int hd, int causal, cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
@@ -226,8 +229,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, Sq, Skv,
-      H, Hkv, hd, 1.0f / sqrtf((float)hd), causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, sv, so, Sq,
+      Skv, H, Hkv, hd, 1.0f / sqrtf((float)hd), causal);
   return (int)cudaGetLastError();
 }
 
@@ -481,8 +484,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_sm90(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-    long long so_b, long long so_s, long long so_h, int Sq, int Skv, int H,
-    int Hkv, int hd, float scale_log2, int causal) {
+    float* __restrict__ lse, long long so_b, long long so_s, long long so_h,
+    int Sq, int Skv, int H, int Hkv, int hd, float scale_log2, int causal) {
   using Lay = Layout<HDP>;
   static_assert(KS * 16 <= HDP && NO <= HDP, "past the padded head_dim");
   extern __shared__ uint8_t smem_raw[];
@@ -654,6 +657,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel_sm90(
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    if (lse != nullptr && lane % 4 == 0) {
+      // natural-log log-sum-exp of the scaled scores: m is a raw score and
+      // l a sum of exp2((s - m) scale_log2) = exp((s - m) / sqrt(hd))
+      const float scale = scale_log2 * 0.6931471805599453f;
+      float* lb = lse + ((long long)b * H + h) * Sq;
+      if (row0 < Sq) lb[row0] = m0 * scale + logf(d0);
+      if (row1 < Sq) lb[row1] = m1 * scale + logf(d1);
+    }
     __nv_bfloat16* o0 = o + b * so_b + (long long)row0 * so_s + h * so_h;
     __nv_bfloat16* o1 = o0 + 8 * so_s;
 #pragma unroll
@@ -718,8 +729,8 @@ bool encode(CUtensorMap* map, const void* ptr, const long long* st, int B,
 
 template <int HDP, int KS, int NO>
 int launch_hd(const CUtensorMap& tq, const CUtensorMap& tk,
-              const CUtensorMap& tv, void* o, const long long* so, int B,
-              int Sq, int Skv, int H, int Hkv, int hd, int causal,
+              const CUtensorMap& tv, void* o, float* lse, const long long* so,
+              int B, int Sq, int Skv, int H, int Hkv, int hd, int causal,
               cudaStream_t stream) {
   const auto kernel = flash_attention_kernel_sm90<HDP, KS, NO>;
   const int smem = (int)Layout<HDP>::kBytes;
@@ -728,12 +739,12 @@ int launch_hd(const CUtensorMap& tq, const CUtensorMap& tk,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
   kernel<<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so[0], so[1], so[2], Sq,
-      Skv, H, Hkv, hd, 1.4426950408889634f / sqrtf((float)hd), causal);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, so[0], so[1], so[2],
+      Sq, Skv, H, Hkv, hd, 1.4426950408889634f / sqrtf((float)hd), causal);
   return (int)cudaGetLastError();
 }
 
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const long long* st, int B, int Sq, int Skv, int H, int Hkv,
            int hd, int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
@@ -744,13 +755,18 @@ int launch(const void* q, const void* k, const void* v, void* o,
   auto* run = hd <= 64   ? launch_hd<64, 4, 64>
               : hd <= 80 ? launch_hd<128, 5, 80>
                          : launch_hd<128, 8, 128>;
-  return run(tq, tk, tv, o, st + 9, B, Sq, Skv, H, Hkv, hd, causal, stream);
+  return run(tq, tk, tv, o, lse, st + 9, B, Sq, Skv, H, Hkv, hd, causal,
+             stream);
 }
 
 }  // namespace sm90
 
 // Plain C entry point (bound with ctypes).  `strides` holds 12 element
-// strides: (batch, sequence, head) of q, k, v and o in that order.
+// strides: (batch, sequence, head) of q, k, v and o in that order.  `lse`
+// is null, or fp32 (B, H, Sq), contiguous: each row's natural-log
+// log-sum-exp of its scaled, masked scores, m + log(l), which the backward
+// (flash_attention_bwd.cu) recomputes P from.  Null costs nothing: the
+// kernels only skip the store.
 // `kernel` is ops.route's choice: 0 launches the CUDA-core kernel on
 // float32 inputs, 1 the tensor-core kernel on bfloat16 inputs (which also
 // needs 16-byte aligned bases and strides that are multiples of 8
@@ -758,7 +774,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // `stream`, does not synchronise, and returns the launch's cudaError_t
 // (0 = cudaSuccess).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     const long long* strides, int B, int Sq, int Skv, int H, int Hkv, int hd,
     int causal, int kernel, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return (int)cudaSuccess;
@@ -767,10 +783,10 @@ extern "C" int flash_attention_launch(
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (kernel == 0)
-    return launch<float>(q, k, v, o, strides, B, Sq, Skv, H, Hkv, hd, causal,
-                         s);
+    return launch<float>(q, k, v, o, lse, strides, B, Sq, Skv, H, Hkv, hd,
+                         causal, s);
   if (kernel == 1)
-    return sm90::launch(q, k, v, o, strides, B, Sq, Skv, H, Hkv, hd, causal,
-                        s);
+    return sm90::launch(q, k, v, o, lse, strides, B, Sq, Skv, H, Hkv, hd,
+                        causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,8 +18,17 @@ is what the C entry point is told to launch:
 * float32 -> ``"cuda_cores"``: the fp32 kernel on the CUDA cores, which
   holds the fp32 checks' 2e-5 (TF32 tensor cores would not).
 
-``launch_count`` counts kernel launches (a plain integer; reset it by
-assigning 0), so a run can show that its path went through the kernel.
+Training: when grad is enabled and any input requires grad, a CUDA call
+goes through ``FlashAttention``, a ``torch.autograd.Function``: its
+forward launches the kernel with the per-row log-sum-exp (``lse``) and
+saves q, k, v, the output and lse; its backward launches the
+hand-written ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``).
+Otherwise the call is the plain launch with no lse and nothing saved.
+On the CPU the plain version is differentiated by torch itself.
+
+``launch_count`` counts forward launches and ``bwd_launch_count``
+backward launches (plain integers; reset them by assigning 0), so a run
+can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -29,18 +38,25 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_plain, flash_attention_lse_plain,
+    flash_attention_plain,
+)
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 _p, _i32 = ctypes.c_void_p, ctypes.c_int
-SYMBOLS = {"flash_attention_launch": [_p] * 5 + [_i32] * 8 + [_p]}
+SYMBOLS = {"flash_attention_launch": [_p] * 6 + [_i32] * 8 + [_p]}
+BWD_SYMBOLS = {"flash_attention_bwd_launch": [_p] * 10 + [_i32] * 8 + [_p]}
+BWD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: the entry's `dtype`
 ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma"}
 KERNELS = {"cuda_cores": 0, "wgmma": 1}   # csrc: the entry's `kernel`
 MAX_HEAD_DIM = 128
 TMA_ALIGN = 16    # bytes: TMA's base-address and stride granule
 
-# Number of kernel launches in this process.
+# Number of kernel launches in this process: forward, backward.
 launch_count = 0
+bwd_launch_count = 0
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -106,17 +122,11 @@ def check_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                 f"strides that are multiples of {TMA_ALIGN} bytes")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, H, hd), fp32
-    online softmax; causal masking is top-left aligned."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, lse: bool):
+    """One forward launch on CUDA tensors -> (out, lse (B, H, Sq) fp32 or
+    None)."""
     global launch_count
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
     from repro_torch.kernels import build
 
     kernel = route(q.dtype)
@@ -126,15 +136,112 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse_t = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+             if lse else None)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in kernel_strides(t)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse_t is None else lse_t.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), B, Sq, Skv, H, Hkv, hd,
             int(bool(causal)), KERNELS[kernel], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launch_count += 1
-    return out
+    return out, lse_t
+
+
+def _device(q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return q.device.type
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True):
+    """``flash_attention`` that also returns each row's natural-log
+    log-sum-exp of its scaled, masked scores: (out (B, Sq, H, hd), lse
+    (B, H, Sq) fp32).  No autograd graph is recorded on CUDA."""
+    _check(q, k, v)
+    if _device(q) == "cpu":
+        return (flash_attention_plain(q, k, v, causal),
+                flash_attention_lse_plain(q, k, v, causal))
+    return _launch(q, k, v, causal, lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal)``
+    given its output ``o``, its ``lse`` (``flash_attention_fwd``) and the
+    output's gradient ``do``, in the inputs' dtype.  On CUDA tensors it
+    launches ``csrc/flash_attention_bwd.cu`` (every tensor made
+    contiguous first) or raises; on CPU tensors it runs the plain
+    version."""
+    global bwd_launch_count
+    _check(q, k, v)
+    B, Sq, H, hd = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} must "
+                         f"be q's {tuple(q.shape)}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 {(B, H, Sq)}, not {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if _device(q) == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    from repro_torch.kernels import build
+
+    lib = build.load("flash_attention_bwd", BWD_SOURCE, BWD_SYMBOLS)
+    q, k, v, lse = (t.contiguous() for t in (q, k, v, lse))
+    o, do = o.to(q.dtype).contiguous(), do.to(q.dtype).contiguous()
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, Hkv, hd,
+            int(bool(causal)), BWD_DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    bwd_launch_count += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the forward kernel with lse,
+    the backward kernel.  CUDA tensors only (the CPU path is the plain
+    version, which autograd differentiates itself)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = _launch(q, k, v, causal, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, H, hd), fp32
+    online softmax; causal masking is top-left aligned.  Differentiable:
+    on CUDA through ``FlashAttention`` when grad is enabled and an input
+    requires grad."""
+    _check(q, k, v)
+    if _device(q) == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, bool(causal))
+    return _launch(q, k, v, causal, lse=False)[0]

@@ -6,6 +6,12 @@ head ``h`` reads KV head ``h // (H // Hkv)``; nothing is repeated in
 memory) and an fp32 softmax whose probabilities stay fp32 for the
 product with V.  Causal masking is top-left aligned (``kpos <= qpos``),
 with masked scores set to -1e30 as in the reference.
+
+``flash_attention_lse_plain`` is the row log-sum-exp the forward kernel
+hands its backward, and ``flash_attention_bwd_plain`` the backward
+kernel's function, written out step by step; the tests and
+``chip_smoke.py`` hold the kernels to them, and a test holds the latter
+to torch's own gradient of ``flash_attention_plain``.
 """
 
 from __future__ import annotations
@@ -13,17 +19,68 @@ from __future__ import annotations
 import torch
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, H, hd)."""
+def _masked(Sq: int, Skv: int, device) -> torch.Tensor:
+    """(Sq, Skv): True where a causal score is masked (kpos > qpos)."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    return torch.arange(Skv, device=device)[None, :] > qpos
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scaled, masked fp32 scores (B, Hkv, G, Sq, Skv) of query head
+    ``h * G + g`` against KV head ``h``."""
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, Hkv, H // Hkv, hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / (hd ** 0.5)
     if causal:
-        qpos = torch.arange(Sq, device=q.device)[:, None]
-        kpos = torch.arange(Skv, device=q.device)[None, :]
-        s = s.masked_fill(kpos > qpos, -1e30)
-    p = torch.softmax(s, dim=-1)
+        s = s.masked_fill(_masked(Sq, Skv, q.device), -1e30)
+    return s
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True
+                              ) -> torch.Tensor:
+    """Each row's natural-log log-sum-exp of its scaled, masked scores:
+    (B, H, Sq) fp32, query head h at index h."""
+    B, Sq, H, _ = q.shape
+    return torch.logsumexp(_scores(q, k, causal), dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = True):
+    """(dq, dk, dv) in q's dtype from the forward's output ``o``, its
+    ``lse`` (B, H, Sq) and the output's gradient ``do``, all in fp32:
+    P recomputed from lse, dV = P^T dO, dP = dO V^T, D = rowsum(dO o O),
+    dS = P o (dP - D), dQ = scale dS K, dK = scale dS^T Q, with dK and
+    dV summed over each KV head's query group."""
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / hd ** 0.5
+    s = _scores(q, k, causal)                             # (B, Hkv, G, Sq, Skv)
+    p = torch.exp(s - lse.float().reshape(B, Hkv, G, Sq)[..., None])
+    if causal:
+        p = p.masked_fill(_masked(Sq, Skv, q.device), 0.0)
+    dog = do.float().reshape(B, Sq, Hkv, G, hd)
+    qg = q.float().reshape(B, Sq, Hkv, G, hd)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    dsum = (do.float() * o.float()).sum(-1)               # (B, Sq, H)
+    dsum = dsum.reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)
+    ds = p * (dp - dsum[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    p = torch.softmax(_scores(q, k, causal), dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)

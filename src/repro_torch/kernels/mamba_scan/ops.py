@@ -9,6 +9,10 @@ CUDA tensors it launches the Hopper kernel (``csrc/mamba_scan.cu``) on
 the current stream or raises; on CPU tensors, and only there, it runs
 the plain version (``ref.py``).
 
+A CUDA call raises ``RuntimeError`` when grad is enabled and an input
+requires grad (``kernels.refuse_grad``): the kernel has no backward yet
+(ROADMAP.md queue 1, item 19), and its output would carry no gradient.
+
 ``launch_count`` counts kernel launches (a plain integer; reset it by
 assigning 0), so a run can show that its path went through the kernel.
 ``scan_plan`` (plain Python) gives a launch's shape: threads a channel,
@@ -116,7 +120,11 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
         return mamba_scan_plain(u, dt, Bc, Cc, A_log)
     if u.device.type != "cuda":
         raise ValueError(f"mamba_scan runs on cuda or cpu, not {u.device}")
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, refuse_grad
+
+    refuse_grad("mamba_scan", (u, dt, Bc, Cc, A_log),
+                "its backward kernel, and with it falcon-mamba training on "
+                "the card, is ROADMAP.md queue 1, item 19")
 
     lib = build.load("mamba_scan", SOURCE, SYMBOLS)
     B, S, din = u.shape

@@ -26,6 +26,10 @@ and the merge's arrival counters are allocated once per shape, device
 and stream and reused by every call of that stream (the counters are
 left zero by each launch); calls on two streams never share them.
 
+A CUDA call raises ``RuntimeError`` when grad is enabled and an input
+requires grad (``kernels.refuse_grad``): the kernel serves decode and
+has no backward, and its output would carry no gradient.
+
 ``launch_count`` counts kernel launches (one a call); a plain integer,
 reset by assigning 0, so a run can show that its path went through the
 kernel.
@@ -171,7 +175,11 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, refuse_grad
+
+    refuse_grad("paged_attention", (q, kpool, vpool),
+                "it serves decode, and training attends with "
+                "flash_attention")
 
     if kpool.data_ptr() % ALIGN or vpool.data_ptr() % ALIGN:
         raise ValueError(f"kpool and vpool must start on {ALIGN}-byte "

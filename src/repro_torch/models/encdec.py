@@ -17,7 +17,10 @@ positions.  Which kernel runs where:
 
 Decode writes this token's k/v into the cache in place; past the cache's
 end it raises ``ValueError`` where the reference clamps (ROADMAP.md
-queue 3).  ``forward_train`` is ROADMAP.md queue 1, item 12.
+queue 3).  ``forward_train`` runs the encoder, the causal decoder and
+its cross-attention over whole sequences (every attention the
+``flash_attention`` kernel), each decoder layer recomputed in the
+backward pass as the reference's ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -164,8 +167,7 @@ def encode(cfg: ModelConfig, params: Dict,
     encoder's output (B, S_enc, D)."""
     x = audio_embeds.to(L.dtype_of(cfg))
     x = x + _sinusoid_on(x.shape[1], cfg.d_model, x.dtype, x.device)
-    for i in range(cfg.n_enc_layers):
-        p = L.layer(params["enc"], i)
+    for p in L.unstack(params["enc"], cfg.n_enc_layers):
         x, _ = _self_attn(cfg, p["self"], x, causal=False)
         x = _mlp(cfg, p, x)
     return L.make_norm(cfg)(x, params["embed"]["enc_final_norm"])
@@ -180,7 +182,7 @@ def forward_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     enc_out = encode(cfg, params, audio_embeds)
     B, S = tokens.shape
     dt = L.dtype_of(cfg)
-    x = params["embed"]["tok"][tokens].to(dt)
+    x = L.embed(params["embed"]["tok"], tokens).to(dt)
     x = x + _sinusoid_on(S, cfg.d_model, dt, x.device)
     shape = (cfg.n_layers, B, max(max_len or S, S), cfg.n_kv_heads, cfg.hd)
     ks = torch.zeros(shape, dtype=dt, device=x.device)
@@ -199,6 +201,29 @@ def forward_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         ks, vs, torch.stack(xks), torch.stack(xvs), S)
 
 
+def _dec_layer_train(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                     enc_out: torch.Tensor) -> torch.Tensor:
+    x, _ = _self_attn(cfg, p["self"], x, causal=True)
+    xk, xv = _cross_kv(cfg, p["cross"], enc_out)
+    return _mlp(cfg, p, _cross_attn(cfg, p["cross"], x, xk, xv))
+
+
+def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
+                  remat: bool = True):
+    """batch: ``audio_embeds`` (B, S_enc, D), ``tokens`` (B, S) ->
+    (logits (B, S, V) through the tied head, aux loss 0.0)."""
+    enc_out = encode(cfg, params, batch["audio_embeds"])
+    tokens = batch["tokens"]
+    dt = L.dtype_of(cfg)
+    x = L.embed(params["embed"]["tok"], tokens).to(dt)
+    x = x + _sinusoid_on(tokens.shape[1], cfg.d_model, dt, x.device)
+    for p in L.unstack(params["dec"], cfg.n_layers):
+        x = L.checkpointed(
+            lambda x, p, e: _dec_layer_train(cfg, p, x, e), x, p, enc_out,
+            remat=remat)
+    return _logits(cfg, params, x), 0.0
+
+
 def forward_decode(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                    cache: EncDecCache):
     """tokens (B, 1) -> (logits (B, 1, V), the cache with length + 1; its
@@ -209,7 +234,7 @@ def forward_decode(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     if pos >= cache.k.shape[2]:
         raise ValueError(f"encdec forward_decode would write position "
                          f"{pos} of a cache of {cache.k.shape[2]}")
-    x = params["embed"]["tok"][tokens].to(L.dtype_of(cfg))
+    x = L.embed(params["embed"]["tok"], tokens).to(L.dtype_of(cfg))
     D = cfg.d_model
     i = torch.arange(D // 2, dtype=torch.float32, device=x.device)
     ang = float(pos) / torch.pow(10_000.0, 2 * i / D)

@@ -108,11 +108,14 @@ def _shared_block_full(cfg: ModelConfig, p: Dict, x, rope):
 
 def forward_full(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                  collect_cache: bool = False, max_len: Optional[int] = None,
-                 full_logits: bool = True):
+                 full_logits: bool = True, remat: bool = True):
     """tokens (B, S) -> (logits, HybridCache or None).  Logits cover
     every position unless ``full_logits`` is False (then the last one).
     ``collect_cache``: also return the decode state, its KV caches padded
-    to ``max_len`` (default S) positions."""
+    to ``max_len`` (default S) positions.  The training call
+    (``collect_cache=False``, grad on) recomputes each Mamba2 body in the
+    backward pass when ``remat``, as the reference does; the shared
+    block's attention gets its gradient from the flash backward kernel."""
     x = T.embed_tokens(cfg, params["embed"], tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -120,15 +123,17 @@ def forward_full(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     k_every = max(1, cfg.shared_attn_every)
     max_len = max_len or S
     convs, ssms, ks, vs = [], [], [], []
+    layers = L.unstack(params["mamba"], cfg.n_layers)
     for g in range(n_shared_invocations(cfg)):
         for i in range(g * k_every, (g + 1) * k_every):
-            p = L.layer(params["mamba"], i)
+            p = layers[i]
             if collect_cache:
                 x, (cs, ss) = M.mamba2_full(cfg, p, x, return_state=True)
                 convs.append(cs)
                 ssms.append(ss)
             else:
-                x = M.mamba2_full(cfg, p, x)
+                x = L.checkpointed(lambda x, p: M.mamba2_full(cfg, p, x),
+                                   x, p, remat=remat)
         x, (k, v) = _shared_block_full(cfg, params["shared"], x, rope)
         if collect_cache:
             pad = (0, 0, 0, 0, 0, max_len - S)

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models.config import ModelConfig
@@ -52,6 +53,37 @@ def layer(blocks: Dict, i: int) -> Dict:
     return tree_map(lambda t: t[i], blocks)
 
 
+def unstack(blocks: Dict, n: int):
+    """The params of each of the ``n`` layers, as ``layer`` gives them,
+    cut by one ``torch.unbind`` a leaf: under autograd each leaf's
+    gradient is one stack of the layers' gradients (``layer``'s indexing
+    would add a full-size zero tensor a layer)."""
+    out = [{} for _ in range(n)]
+
+    def cut(dst, tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                for d in dst:
+                    d[k] = {}
+                cut([d[k] for d in dst], v)
+            else:
+                for d, t in zip(dst, torch.unbind(v, 0)):
+                    d[k] = t
+    cut(out, blocks)
+    return out
+
+
+def checkpointed(fn, *args, remat: bool = True):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) when ``remat`` and grad is
+    on: the reference's ``jax.checkpoint`` of a scan body.  Remat changes
+    memory, not values."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
 def tree_from_numpy(tree: Dict, dtype: torch.dtype, device: torch.device,
                     keep_fp32=()) -> Dict:
     """A tree of numpy leaves (the reference's params) as tensors on
@@ -64,6 +96,14 @@ def tree_from_numpy(tree: Dict, dtype: torch.dtype, device: torch.device,
         t = torch.from_numpy(np.array(x, np.float32))
         return t.to(device, torch.float32 if key in keep_fp32 else dtype)
     return conv(None, tree)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` as ``F.embedding``: the same values, and a
+    gradient that is deterministic on the CPU and the card (the backward
+    of ``table[tokens]`` on CPU tensors accumulates in a thread-dependent
+    order)."""
+    return F.embedding(tokens, table)
 
 
 # -- initialisers -------------------------------------------------------------

@@ -3,6 +3,7 @@
 ``build(cfg)`` returns a ``ModelAPI`` with the functions its callers
 use:
   init(generator, device=None) -> params
+  loss(params, batch) -> (scalar loss, metrics dict)
   prefill(params, tokens, ...) -> (logits, cache)
   decode(params, tokens, cache) -> (logits, cache)
   init_cache(batch, max_len, device=None) -> zeroed cache
@@ -20,8 +21,17 @@ Mamba2 blocks plus one shared attention block) and the encoder-decoder
 (whisper, ``prefill(params, tokens, audio_embeds, max_len=None)``,
 logits at the last position) decode from their own state with
 ``decode``; like the reference's serving engine, the paged decode
-refuses them.  The training loss comes with the training slice
-(ROADMAP.md queue 1, item 12).
+refuses them.
+
+``loss`` is the reference's: fp32 cross-entropy over every position
+whose label is not -1 (``cross_entropy``), plus the MoE aux loss, on
+the training forward of the family (each block recomputed in the
+backward pass); ``batch`` holds ``tokens`` and ``labels`` (B, S) and,
+for the vlm, ``patch_embeds`` or, for the encdec, ``audio_embeds``
+(``launch.specs.make_batch``).  Its metrics: ``ce`` and ``aux`` for
+dense, vlm, moe and ssm, ``ce`` for hybrid and encdec.  On the card the
+ssm loss raises until the ``mamba_scan`` kernel has a backward (ROADMAP
+queue 1, item 19).
 """
 
 from __future__ import annotations
@@ -39,12 +49,27 @@ from repro_torch.models import mamba as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """fp32 cross-entropy with ignore_index = -1: logits (B, S, V), labels
+    (B, S) -> the mean over the labelled positions.  The row max is
+    detached, as the reference's ``stop_gradient``."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    logz = m[..., 0] + torch.log(torch.exp(lf - m).sum(dim=-1))
+    safe = labels.clamp(min=0).long()
+    ll = lf.gather(-1, safe[..., None])[..., 0] - logz
+    mask = (labels >= 0).float()
+    return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     """A family's entry points, closed over its config."""
 
     cfg: ModelConfig
     init: Callable[..., Dict]
+    loss: Callable[[Dict, Dict], Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
@@ -98,6 +123,30 @@ def _ssm_init(cfg: ModelConfig, generator: torch.Generator,
                       "lm_head": L.dense_init(generator,
                                               (cfg.d_model, cfg.vocab), pd)},
             "blocks": M.mamba1_params(cfg, generator, (cfg.n_layers,))}
+
+
+def _ssm_forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
+                       remat: bool = True):
+    """batch ``tokens`` (B, S) -> (logits (B, S, V), aux 0.0), each Mamba1
+    block recomputed in the backward pass when ``remat``."""
+    x = T.embed_tokens(cfg, params["embed"], batch["tokens"])
+    for p in L.unstack(params["blocks"], cfg.n_layers):
+        x = L.checkpointed(lambda x, p: M.mamba1_full(cfg, p, x), x, p,
+                           remat=remat)
+    return (T.lm_logits(cfg, params["embed"], x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _loss_fn(forward, with_aux: bool):
+    """The family's ``loss``: CE of ``forward``'s logits, plus its aux
+    loss where ``with_aux``."""
+    def loss(params: Dict, batch: Dict):
+        logits, aux = forward(params, batch)
+        ce = cross_entropy(logits, batch["labels"])
+        if with_aux:
+            return ce + aux, {"ce": ce, "aux": aux}
+        return ce, {"ce": ce}
+    return loss
 
 
 def _ssm_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -162,6 +211,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
             cfg=cfg,
             init=lambda generator, device=None: T.init_params(
                 cfg, generator, device),
+            loss=_loss_fn(lambda params, batch: T.forward_train(
+                cfg, params, batch), with_aux=True),
             prefill=lambda params, tokens, full_logits=False, max_len=None,
                 patch_embeds=None: T.forward_prefill(
                     cfg, params, tokens, max_len=max_len,
@@ -181,6 +232,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
             cfg=cfg,
             init=lambda generator, device=None: _ssm_init(cfg, generator,
                                                           device),
+            loss=_loss_fn(lambda params, batch: _ssm_forward_train(
+                cfg, params, batch), with_aux=True),
             prefill=lambda params, tokens, full_logits=False, max_len=None:
                 _ssm_prefill(cfg, params, tokens, full_logits, max_len),
             decode=lambda params, tokens, cache: _ssm_decode(
@@ -193,6 +246,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
             cfg=cfg,
             init=lambda generator, device=None: hybrid.init_params(
                 cfg, generator, device),
+            loss=_loss_fn(lambda params, batch: hybrid.forward_full(
+                cfg, params, batch["tokens"]), with_aux=False),
             prefill=lambda params, tokens, full_logits=False, max_len=None:
                 _hybrid_prefill(cfg, params, tokens, full_logits, max_len),
             decode=lambda params, tokens, cache: hybrid.forward_decode(
@@ -205,6 +260,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
             cfg=cfg,
             init=lambda generator, device=None: E.init_params(
                 cfg, generator, device),
+            loss=_loss_fn(lambda params, batch: E.forward_train(
+                cfg, params, batch), with_aux=False),
             prefill=lambda params, tokens, audio_embeds, max_len=None:
                 E.forward_prefill(cfg, params, tokens, audio_embeds, max_len),
             decode=lambda params, tokens, cache: E.forward_decode(

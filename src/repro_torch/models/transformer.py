@@ -9,6 +9,12 @@ for the moe family the routed experts of ``models/moe.py``; the vlm
 family prepends projected patch embeddings to the tokens
 (``embed_inputs``).  The entry points:
 
+  * ``forward_train`` — the full-sequence causal forward of training,
+    returning the logits of every position and the summed MoE aux loss;
+    each block runs under ``layers.checkpointed`` (its activations
+    recomputed in the backward pass, as the reference's
+    ``jax.checkpoint``), its attention the ``flash_attention`` kernel,
+    whose gradient is the backward kernel.
   * ``forward_prefill`` — full-sequence causal forward returning the
     contiguous KV cache (``KVCache``, ``max_len`` positions); attention
     runs the ``flash_attention`` kernel.
@@ -24,8 +30,7 @@ family prepends projected patch embeddings to the tokens
 
 Where the reference's ``jax.lax.dynamic_update_slice`` clamps a write
 past the end of a cache onto its last slots, the port raises
-``ValueError`` (ROADMAP.md queue 3).  ``forward_train`` is ROADMAP.md
-queue 1, item 12.
+``ValueError`` (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -153,8 +158,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # -- embedding / head ------------------------------------------------------------------
 
 def embed_tokens(cfg: ModelConfig, p: Dict, tokens: torch.Tensor):
-    """Token embeddings in the activation dtype."""
-    return p["tok"][tokens].to(L.dtype_of(cfg))
+    """Token embeddings in the activation dtype (``layers.embed``)."""
+    return L.embed(p["tok"], tokens).to(L.dtype_of(cfg))
 
 
 def embed_inputs(cfg: ModelConfig, p: Dict, tokens: torch.Tensor,
@@ -192,6 +197,41 @@ def _mix_residual(cfg: ModelConfig, p: Dict, x: torch.Tensor, decode: bool):
     return x + m
 
 
+def _block(cfg: ModelConfig, p: Dict, x: torch.Tensor, rope):
+    """One block over the whole sequence, causal: (x, aux, k, v), the
+    MoE's aux loss (0.0 for the MLP) and the layer's rotated k and v for
+    a cache."""
+    B, S, _ = x.shape
+    norm = L.make_norm(cfg)
+    q, k, v = L.qkv_proj(cfg, p["attn"], norm(x, p["ln1"]))
+    q, k = L.rotate(q, rope), L.rotate(k, rope)
+    o = flash_ops.flash_attention(q, k, v, causal=True)
+    x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+    m, aux = _mix(cfg, p, norm(x, p["ln2"]))
+    return x + m, aux, k, v
+
+
+def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
+                  remat: bool = True):
+    """batch: ``tokens`` (B, S) and, for the vlm family, ``patch_embeds``
+    (B, P, D) -> (logits (B, P + S, V), aux loss, an fp32 scalar).  The
+    embedding and blocks of ``forward_prefill`` with no cache writes;
+    with ``remat`` each block's activations are recomputed in the
+    backward pass."""
+    _check_family(cfg)
+    x = embed_inputs(cfg, params["embed"], batch["tokens"],
+                     batch.get("patch_embeds"))
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.rope_frac)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in L.unstack(params["blocks"], cfg.n_layers):
+        x, a = L.checkpointed(lambda x, p: _block(cfg, p, x, rope)[:2],
+                              x, p, remat=remat)
+        aux = aux + a
+    return lm_logits(cfg, params["embed"], x), aux
+
+
 def forward_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                     max_len: Optional[int] = None, full_logits: bool = False,
                     patch_embeds=None):
@@ -209,14 +249,8 @@ def forward_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     cache = init_kv_cache(cfg, B, max(max_len or S, S), device=x.device)
     positions = torch.arange(S, device=x.device).expand(B, S)
     rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.rope_frac)
-    norm = L.make_norm(cfg)
     for i in range(cfg.n_layers):
-        p = L.layer(params["blocks"], i)
-        q, k, v = L.qkv_proj(cfg, p["attn"], norm(x, p["ln1"]))
-        q, k = L.rotate(q, rope), L.rotate(k, rope)
-        o = flash_ops.flash_attention(q, k, v, causal=True)
-        x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
-        x = _mix_residual(cfg, p, x, decode=False)
+        x, _, k, v = _block(cfg, L.layer(params["blocks"], i), x, rope)
         cache.k[i, :, :S] = k
         cache.v[i, :, :S] = v
     logits = lm_logits(cfg, params["embed"], x if full_logits else x[:, -1:])

@@ -10,7 +10,9 @@ Flow per request:
 The port of ``repro.serving.engine``.  Prefill runs the model's
 ``forward_prefill`` (the ``flash_attention`` kernel) and decode its
 ``forward_decode_paged`` (the ``paged_attention`` kernel), on the card
-unless the caller names another device.  ``run()`` is a thin client of
+unless the caller names another device, both under ``torch.no_grad()``:
+params that come live out of a train step serve without building a
+graph.  ``run()`` is a thin client of
 the ``Scheduler``; ``run_sync`` is the old synchronous loop, kept as the
 reference the scheduler's greedy tokens are held against.
 
@@ -146,7 +148,9 @@ class ServingEngine:
         bs = self.pool.bs
         pad = (-n_real) % bs  # length bucketing, as the reference
         toks = self._tensor([list(st.tokens) + [0] * pad], torch.long)
-        logits, cache = self.api.prefill(self.params, toks, full_logits=True)
+        with torch.no_grad():  # params live out of a train step need no graph
+            logits, cache = self.api.prefill(self.params, toks,
+                                             full_logits=True)
         k = cache.k[:, 0]  # (L, S, H, hd)
         v = cache.v[:, 0]
         for b in fill_blocks:
@@ -207,10 +211,11 @@ class ServingEngine:
             for rows in (toks, poss, sids, soffs, bts):
                 rows.extend(rows[-1:] * (self.max_batch - len(rows)))
         t_step = time.perf_counter()
-        logits, _, _ = self.api.decode_paged(
-            self.params, self._tensor(toks, torch.long)[:, None],
-            self.pool.kpool, self.pool.vpool, self._tensor(np.stack(bts)),
-            self._tensor(poss), self._tensor(sids), self._tensor(soffs))
+        with torch.no_grad():
+            logits, _, _ = self.api.decode_paged(
+                self.params, self._tensor(toks, torch.long)[:, None],
+                self.pool.kpool, self.pool.vpool, self._tensor(np.stack(bts)),
+                self._tensor(poss), self._tensor(sids), self._tensor(soffs))
         nxt = torch.argmax(logits[:, 0], dim=-1).tolist()
         self._h_decode.observe(time.perf_counter() - t_step)
         out = {}

@@ -63,6 +63,18 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert int(out.stdout.strip()) >= 15  # every module was imported
 
 
+def test_the_scan_covers_the_training_modules_and_the_backward_kernel():
+    """The AST scan above walks every module of the port: the training
+    slice's packages and the backward kernel's wrapper among them."""
+    walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for mod in ("training/optim.py", "training/step.py",
+                "data/pipeline.py", "launch/specs.py", "launch/train.py",
+                "kernels/flash_attention/ops.py"):
+        assert mod in walked, mod
+    assert (PORT / "kernels" / "flash_attention" / "csrc" /
+            "flash_attention_bwd.cu").exists()
+
+
 def test_layout_constants_equal_reference():
     for name in ("EMPTY", "W_NONE", "W_SMALL", "W_MAIN", "W_GHOST"):
         assert getattr(playout, name) == getattr(jlayout, name), name

@@ -2,7 +2,10 @@
 ``simple_sim``, ``flash_attention``, ``paged_attention``, ``mamba_scan``)
 against their plain PyTorch versions, on a card, and the moe and vlm
 serving paths and the contiguous-cache decode (dense, hybrid,
-encoder-decoder) on the card against the port on the CPU.
+encoder-decoder) on the card against the port on the CPU; and training:
+the flash backward kernel against its plain version, the grad refusals
+of ``paged_attention`` and ``mamba_scan``, and a train step on the card
+against the CPU.
 Every test here is marked ``cuda`` and skips without one.
 
 This file imports nothing of JAX or ``repro``, so it runs on a machine
@@ -914,3 +917,111 @@ def test_contiguous_decode_on_the_card_equals_the_cpu(arch, cuda_device):
                          cache.v.cpu())
     for a, b in zip(out[str(cuda_device)], out["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# -- training: the flash backward kernel, the grad refusals, a train step ------
+
+# B, Sq, Skv, H, Hkv, hd, causal: GQA, head_dims 128, 112, 80, 64 and 8,
+# Sq != Skv both ways, lengths off every tile
+FLASH_BWD_SHAPES = [(2, 130, 130, 8, 2, 128, True), (1, 65, 65, 4, 4, 112, True),
+                    (1, 200, 200, 4, 4, 80, True), (2, 70, 300, 6, 6, 64, False),
+                    (1, 300, 70, 2, 1, 8, True), (1, 257, 257, 3, 3, 64, False)]
+BWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 3e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,hd,causal", FLASH_BWD_SHAPES)
+def test_flash_attention_backward_kernel_equals_plain(B, Sq, Skv, H, Hkv, hd,
+                                                      causal, dtype,
+                                                      cuda_device):
+    """Gradients through ``flash_attention`` (the autograd Function: the
+    forward kernel with lse, the backward kernel) against the plain
+    backward on fp32 copies of the same inputs, and the lse against the
+    plain log-sum-exp."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_lse_plain,
+    )
+    rng = np.random.default_rng(Sq + hd)
+    q, k, v = (_randn(rng, s, dtype, cuda_device).requires_grad_()
+               for s in ((B, Sq, H, hd), (B, Skv, Hkv, hd), (B, Skv, Hkv, hd)))
+    do = _randn(rng, (B, Sq, H, hd), dtype, cuda_device)
+    f0, b0 = fops.launch_count, fops.bwd_launch_count
+    o = fops.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fops.launch_count, fops.bwd_launch_count) == (f0 + 1, b0 + 1)
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    o2, lse = fops.flash_attention_fwd(q.detach(), k.detach(), v.detach(),
+                                       causal)
+    assert torch.equal(o2, o.detach())
+    torch.testing.assert_close(lse, flash_attention_lse_plain(
+        qf, kf, vf, causal), atol=1e-4, rtol=1e-5)
+    want = flash_attention_bwd_plain(qf, kf, vf, o.detach().float(), lse,
+                                     do.float(), causal)
+    atol, rtol = BWD_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_paged_attention_and_mamba_scan_refuse_grad_on_the_card(cuda_device):
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.paged_attention import ops as pops
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (2, 4, 64), torch.float32, cuda_device)
+    kp = _randn(rng, (4, 16, 4, 64), torch.float32, cuda_device)
+    vp = _randn(rng, (4, 16, 4, 64), torch.float32, cuda_device)
+    bt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda_device)
+    lens = torch.tensor([20, 31], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="paged_attention on CUDA has no "
+                                           "backward"):
+        pops.paged_attention(q.requires_grad_(), kp, vp, bt, lens)
+    with torch.no_grad():
+        pops.paged_attention(q, kp, vp, bt, lens)
+    u = _randn(rng, (1, 8, 32), torch.float32, cuda_device)
+    dt = _randn(rng, (1, 8, 32), torch.float32, cuda_device).abs()
+    Bc = _randn(rng, (1, 8, 4), torch.float32, cuda_device)
+    Cc = _randn(rng, (1, 8, 4), torch.float32, cuda_device)
+    A = torch.zeros((32, 4), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="item 19"):
+        sops.mamba_scan(u, dt, Bc, Cc, A)
+    with torch.no_grad():
+        sops.mamba_scan(u, dt, Bc, Cc, A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "whisper-tiny"])
+def test_train_step_on_the_card_equals_the_cpu(arch, cuda_device):
+    """One step of the reduced model (fp32) on the card, its attention
+    through both flash kernels, against the same step on the CPU."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.models.model import build
+    from repro_torch.training import optim, step as step_lib
+
+    cfg = reduced(get_config(arch))
+    api = build(cfg)
+    oc = optim.AdamWConfig(lr=1e-3, warmup_steps=1)
+    step = step_lib.make_train_step(api, step_lib.RunConfig(adamw=oc))
+    state = step_lib.init_train_state(api, torch.Generator().manual_seed(0),
+                                      oc, device="cpu")
+    tree = step_lib.train_state_to_numpy(state)
+    batch = make_batch(cfg, ShapeCell("t", 32, 4, "train"), seed=5,
+                       device="cpu")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        st = step_lib.train_state_from_numpy(cfg, tree, oc, device=dev)
+        b0 = fops.bwd_launch_count
+        st, m = step(st, {k: v.to(dev) for k, v in batch.items()})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert fops.bwd_launch_count > b0
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out[str(cuda_device)]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * l_cpu
+    assert abs(g_gpu - g_cpu) <= 1e-5 * g_cpu
