@@ -192,10 +192,11 @@ def _err(got, want, tol: float, rtol: float | None = None):
                                    .all())
 
 
-def limit_use(got, want, atol: float, rtol: float) -> float:
-    """max |got - want| / (atol + rtol|want|): above 1 fails the check."""
+def limit_use(got, want, atol: float, rtol: float, slack=0.0) -> float:
+    """max |got - want| / (atol + rtol|want| + slack): above 1 fails the
+    check (``slack``: a tensor of per-element allowances, or 0)."""
     diff = (got.float() - want.float()).abs()
-    return float((diff / (atol + rtol * want.float().abs())).max())
+    return float((diff / (atol + rtol * want.float().abs() + slack)).max())
 
 
 def new_shape_tol(dt: str, tol: float) -> tuple:
@@ -1652,11 +1653,18 @@ def attn_previous(dev, tree: str):
     of 20; paged without the value check), in the order earlier, present,
     present, earlier; and each kernel's max and mean |err| against its
     plain version on fp32 copies of the same inputs (no bf16 rounding of
-    the reference's output).  Only ``tree``'s wrappers and CUDA sources are
-    used; they build and load through this checkout's ``kernels/build``."""
+    the reference's output).  Then the flash backward the same way at
+    ``FLASH_TRAIN_SHAPE`` (bf16, causal, medians of 10, as
+    ``flash_bwd_time``), its errors over dq, dk, dv against the unrounded
+    plain backward; a tree whose flash ops name no ``BWD_SOURCE`` has
+    none and is reported absent.
+    Only ``tree``'s wrappers and CUDA sources are used; they build and
+    load through this checkout's ``kernels/build``."""
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_plain,
+    )
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.paged_attention.ref import paged_attention_plain
 
@@ -1666,11 +1674,14 @@ def attn_previous(dev, tree: str):
                          "previous_flash_ops")
     old_p = _load_module(os.path.join(kdir, "paged_attention", "ops.py"),
                          "previous_paged_ops")
+    old_bwd = getattr(old_f, "BWD_SOURCE", None)
     t0 = time.perf_counter()
     kbuild.build_many([("flash_attention", fops.SOURCE),
                        ("paged_attention", pops.SOURCE),
+                       ("flash_attention_bwd", fops.BWD_SOURCE),
                        ("flash_attention", old_f.SOURCE),
-                       ("paged_attention", old_p.SOURCE)])
+                       ("paged_attention", old_p.SOURCE)]
+                      + ([("flash_attention_bwd", old_bwd)] if old_bwd else []))
     rec = dict(phase="attn_previous", tree=tree,
                build_s=time.perf_counter() - t0)
     rng = np.random.default_rng(2)
@@ -1709,6 +1720,29 @@ def attn_previous(dev, tree: str):
             **both(lambda: old_f.flash_attention(q, k, v, True),
                    lambda: fops.flash_attention(q, k, v, True), want))
         del q, k, v, want
+    B, S, H, Hkv, hd = FLASH_TRAIN_SHAPE
+    shape = f"bf16, B={B}, S={S}, H={H}, Hkv={Hkv}, hd={hd}, causal"
+    if old_bwd is None:
+        rec["flash_bwd"] = dict(shape=shape, previous="absent: the earlier "
+                                "tree has no flash_attention_bwd")
+    else:
+        q, k, v, do = g(B, S, H, hd), g(B, S, Hkv, hd), g(B, S, Hkv, hd), \
+            g(B, S, H, hd)
+        o, lse = fops.flash_attention_fwd(q, k, v, True)
+        calls = [lambda m=m: m.flash_attention_bwd(q, k, v, o, lse, do, True)
+                 for m in (old_f, fops)]
+        ms = [statistics.median(warm_ms(calls[i], flush, 10))
+              for i in (0, 1, 1, 0)]
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+        err = [torch.cat([(a.float() - w).abs().flatten()
+                          for a, w in zip(f(), want)]) for f in calls]
+        rec["flash_bwd"] = dict(
+            shape=shape, previous_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+            previous_max_abs_err=float(err[0].max()),
+            max_abs_err=float(err[1].max()),
+            previous_mean_abs_err=float(err[0].mean()),
+            mean_abs_err=float(err[1].mean()))
+        del q, k, v, do, o, lse, want, err
     rec["l2_flush_bytes"] = flush.numel() * 4
     return rec
 
@@ -3171,9 +3205,21 @@ def policy_kernel_row(name, times, cmp, evp, families, trace, all_traces,
 
 # -- training: the flash backward kernel, olmo-1b, consistency, resume ---------
 
-# flash_attention_bwd.cu's KV tile: rows dropped by the planted fault
+# flash_attention_bwd.cu's KV tile (the dQ kernel's streamed tile): rows
+# dropped by the planted fault
 BWD_KV_TILE = 64
-BWD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": NEW_BF16_TOL}  # atol, rtol
+# atol, rtol against the plain backward that rounds where the kernel rounds
+# (bf16: P and dS to bf16 before their products, ref.py's round_to), each
+# element's limit widened by one bf16 step of the largest term of its sum
+# (ref.py's flash_attention_bwd_rounding_slack): the kernel and its oracle
+# round the same fp32 values, summed in other orders, and where one lies
+# at a tie they round a step apart, which on a short causal row's large dS
+# alone exceeds 1e-3.  A bf16 case is also held to the unrounded fp32 plain
+# backward at ATTN_TOL, the rounding's own size
+# (tests/test_torch_bwd_rounding.py): NEW_BF16_TOL there would refuse the
+# rounding on every causal case, and ATTN_TOL against the rounded oracle
+# would blunt the planted faults
+BWD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": NEW_BF16_TOL}
 # the forward kernel's lse in the backward cases at the card tests' limit
 # (test_torch_cuda.py); its out as attn_kernels_vs_plain holds it
 LSE_TOL = (1e-4, 1e-5)
@@ -3231,7 +3277,8 @@ def _bwd_case(dev, dt, case, rng):
     kernel's out and lse; the plain forward's out and lse on fp32 copies;
     the kernel's (dq, dk, dv) from its own out and lse, and the plain
     backward's from the kernel's out and the plain lse, so a wrong lse
-    cannot give the kernel and its oracle the same wrong P."""
+    cannot give the kernel and its oracle the same wrong P: rounded as the
+    kernel rounds (``ops.BWD_ROUNDING``), and unrounded."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_plain, flash_attention_lse_plain,
@@ -3248,27 +3295,36 @@ def _bwd_case(dev, dt, case, rng):
     plain = (flash_attention_plain(qf, kf, vf, causal),
              flash_attention_lse_plain(qf, kf, vf, causal))
     got = fops.flash_attention_bwd(q, k, v, o, lse, do, causal)
-    want = flash_attention_bwd_plain(qf, kf, vf, o.float(), plain[1],
-                                     do.float(), causal)
-    return (q, k, v, o, lse, do), plain, got, want
+    want, want32 = (flash_attention_bwd_plain(
+        qf, kf, vf, o.float(), plain[1], do.float(), causal, round_to=r)
+        for r in (fops.BWD_ROUNDING[q.dtype], None))
+    return (q, k, v, o, lse, do), plain, got, want, want32
 
 
 def bwd_case_check(dev, dt, case, rng) -> dict:
     """``_bwd_case``'s limit uses: the forward kernel's out against the
     plain forward (``bwd_fwd_tol``), its lse against the plain
     log-sum-exp (``LSE_TOL``), its dq, dk, dv against the plain backward
-    (``BWD_TOL``); and for a bf16 case three planted faults, each of
-    which must use more than its check's limit: the backward with D =
-    rowsum(dO o O) left out (o given as zeros), with the last KV tile
-    dropped, and an lse stored in base 2 (lse log2 e), which fails the
-    lse check and, given to the backward, the gradient check."""
+    that rounds as the kernel does (``BWD_TOL``) and against the
+    unrounded one (``ATTN_TOL``, ``fp32_limit_use``); and for a bf16 case
+    planted faults, each of which must use more than the rounded check's
+    limit: the backward with D = rowsum(dO o O) left out (o given as
+    zeros), with the last KV tile dropped, and an lse stored in base 2
+    (lse log2 e), which fails the lse check and, given to the backward,
+    the gradient check."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_rounding_slack,
+    )
 
     B, Sq, Skv, H, Hkv, hd, causal = case
-    (q, k, v, o, lse, do), (o_p, lse_p), got, want = _bwd_case(dev, dt, case,
-                                                              rng)
-    tol = BWD_TOL[dt]
-    grad_use = lambda gs: max(limit_use(a, w, *tol) for a, w in zip(gs, want))
+    (q, k, v, o, lse, do), (o_p, lse_p), got, want, want32 = _bwd_case(
+        dev, dt, case, rng)
+    tol, rnd = BWD_TOL[dt], fops.BWD_ROUNDING[q.dtype]
+    slack = ((0.0,) * 3 if rnd is None else flash_attention_bwd_rounding_slack(
+        *(t.float() for t in (q, k, v, o)), lse_p, do.float(), causal, rnd))
+    grad_use = lambda gs: max(limit_use(a, w, *tol, sl)
+                              for a, w, sl in zip(gs, want, slack))
     rec = dict(
         dtype=dt, B=B, Sq=Sq, Skv=Skv, H=H, Hkv=Hkv, hd=hd, causal=causal,
         tol=list(tol), lse_tol=list(LSE_TOL),
@@ -3278,7 +3334,12 @@ def bwd_case_check(dev, dt, case, rng) -> dict:
         lse_limit_use=limit_use(lse, lse_p, *LSE_TOL),
         max_abs_err=dict(zip(("dq", "dk", "dv"), (
             float((a.float() - w).abs().max()) for a, w in zip(got, want)))),
-        limit_use=grad_use(got))
+        limit_use=grad_use(got), round_to=str(rnd),
+        max_slack=dict(zip(("dq", "dk", "dv"), (float(torch.as_tensor(
+            sl).max()) for sl in slack))),
+        fp32_tol=list(ATTN_TOL[dt]),
+        fp32_limit_use=max(limit_use(a, w, *ATTN_TOL[dt])
+                           for a, w in zip(got, want32)))
     faults = {}
     if dt == "bfloat16":
         faults["no_delta"] = grad_use(fops.flash_attention_bwd(
@@ -3300,8 +3361,8 @@ def bwd_case_check(dev, dt, case, rng) -> dict:
 
 def flash_bwd_vs_plain(dev):
     """``bwd_case_check`` at ``FLASH_BWD_CASES``, fp32 and bf16: every
-    limit use at most 1, every planted fault's above 1.  Returns the
-    record."""
+    limit use (rounded oracle and fp32 one) at most 1, every planted
+    fault's above 1.  Returns the record."""
     rng = np.random.default_rng(23)
     t0 = time.perf_counter()
     rec = dict(phase="flash_bwd_vs_plain", cases=[])
@@ -3315,6 +3376,9 @@ def flash_bwd_vs_plain(dev):
             require(c["limit_use"] <= 1.0, f"flash_attention_bwd {dt} {case}"
                     f" != plain (limit use {c['limit_use']}, max err "
                     f"{c['max_abs_err']})")
+            require(c["fp32_limit_use"] <= 1.0, f"flash_attention_bwd {dt} "
+                    f"{case} != fp32 plain (limit use {c['fp32_limit_use']} "
+                    f"at {c['fp32_tol']})")
             for name, use in c["fault_limit_use"].items():
                 require(use > 1.0, f"the backward check at {case} passes a "
                         f"kernel with its {name} fault (limit use {use})")
@@ -3323,6 +3387,7 @@ def flash_bwd_vs_plain(dev):
     cs = rec["cases"]
     rec["max_abs_err"] = max(max(c["max_abs_err"].values()) for c in cs)
     rec["max_limit_use"] = max(c["limit_use"] for c in cs)
+    rec["max_fp32_limit_use"] = max(c["fp32_limit_use"] for c in cs)
     rec["max_lse_abs_err"] = max(c["lse_max_abs_err"] for c in cs)
     rec["max_lse_limit_use"] = max(c["lse_limit_use"] for c in cs)
     rec["max_out_limit_use"] = max(c["out_limit_use"] for c in cs)
@@ -4471,6 +4536,8 @@ def main() -> int:
                  train_main=train_launches["flash_attention_bwd"]),
              max_abs_err=bwd_check["max_abs_err"],
              max_limit_use=bwd_check["max_limit_use"],
+             max_fp32_limit_use=bwd_check["max_fp32_limit_use"],
+             routes={str(t): fops.BWD_ROUTES[t] for t in fops.BWD_ROUTES},
              max_lse_abs_err=bwd_check["max_lse_abs_err"],
              min_fault_limit_use=bwd_check["min_fault_limit_use"],
              ms=bt["bwd"]["ms"], plain_ms=bt["bwd"]["plain_ms"],

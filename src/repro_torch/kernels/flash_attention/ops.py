@@ -26,6 +26,13 @@ hand-written ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``).
 Otherwise the call is the plain launch with no lse and nothing saved.
 On the CPU the plain version is differentiated by torch itself.
 
+The backward is routed by type too (``bwd_route``, ``BWD_ROUTES``):
+bf16 -> ``"wgmma"``, the tensor-core kernels, which need q, k, v, o and
+dO TMA-loadable after they are made contiguous and raise otherwise;
+fp32 -> ``"cuda_cores"``.  The bf16 kernels round P and dS to bf16
+before their products; ``flash_attention_bwd``'s CPU path, the plain
+version, rounds where they do (``BWD_ROUNDING``).
+
 ``launch_count`` counts forward launches and ``bwd_launch_count``
 backward launches (plain integers; reset them by assigning 0), so a run
 can show that its path went through the kernels.
@@ -48,9 +55,12 @@ BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 _p, _i32 = ctypes.c_void_p, ctypes.c_int
 SYMBOLS = {"flash_attention_launch": [_p] * 6 + [_i32] * 8 + [_p]}
 BWD_SYMBOLS = {"flash_attention_bwd_launch": [_p] * 10 + [_i32] * 8 + [_p]}
-BWD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: the entry's `dtype`
 ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma"}
-KERNELS = {"cuda_cores": 0, "wgmma": 1}   # csrc: the entry's `kernel`
+BWD_ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma"}
+KERNELS = {"cuda_cores": 0, "wgmma": 1}   # csrc: both entries' `kernel`
+# the type the backward rounds P and dS to before their products, by input
+# type (None: no rounding); the plain version is told the same
+BWD_ROUNDING = {torch.float32: None, torch.bfloat16: torch.bfloat16}
 MAX_HEAD_DIM = 128
 TMA_ALIGN = 16    # bytes: TMA's base-address and stride granule
 
@@ -92,6 +102,14 @@ def route(dtype: torch.dtype) -> str:
     return ROUTES[dtype]
 
 
+def bwd_route(dtype: torch.dtype) -> str:
+    """The backward kernels a CUDA call with inputs of ``dtype`` launches."""
+    if dtype not in BWD_ROUTES:
+        raise TypeError(f"flash_attention_bwd takes one of "
+                        f"{list(BWD_ROUTES)}, not {dtype}")
+    return BWD_ROUTES[dtype]
+
+
 def kernel_strides(t: torch.Tensor) -> tuple:
     """Element strides of (batch, sequence, head) of a (B, S, heads, hd)
     tensor as the kernel gets them: an axis of size 1 is never stepped
@@ -111,10 +129,11 @@ def tma_compatible(t: torch.Tensor) -> bool:
             all(s * es % TMA_ALIGN == 0 for s in kernel_strides(t)))
 
 
-def check_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise unless TMA can load each of q, k and v (``tma_compatible``);
-    a caller whose views fail makes them contiguous first."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def check_tma(*tensors: torch.Tensor) -> None:
+    """Raise unless TMA can load each of the tensors, named q, k, v, o
+    and do in that order (``tma_compatible``); a caller whose views fail
+    makes them contiguous first."""
+    for name, t in zip(("q", "k", "v", "o", "do"), tensors):
         if not tma_compatible(t):
             raise ValueError(
                 f"{name} (strides {t.stride()}) is not TMA-loadable: bf16 "
@@ -178,11 +197,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal)``
     given its output ``o``, its ``lse`` (``flash_attention_fwd``) and the
     output's gradient ``do``, in the inputs' dtype.  On CUDA tensors it
-    launches ``csrc/flash_attention_bwd.cu`` (every tensor made
-    contiguous first) or raises; on CPU tensors it runs the plain
-    version."""
+    launches ``csrc/flash_attention_bwd.cu``'s kernels of ``bwd_route``
+    (every tensor made contiguous first) or raises; on CPU tensors it
+    runs the plain version, with P and dS rounded as those kernels round
+    them (``BWD_ROUNDING``)."""
     global bwd_launch_count
     _check(q, k, v)
+    kernel = bwd_route(q.dtype)
     B, Sq, H, hd = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} must "
@@ -191,12 +212,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be fp32 {(B, H, Sq)}, not {lse.dtype} "
                          f"{tuple(lse.shape)}")
     if _device(q) == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                         round_to=BWD_ROUNDING[q.dtype])
     from repro_torch.kernels import build
 
     lib = build.load("flash_attention_bwd", BWD_SOURCE, BWD_SYMBOLS)
     q, k, v, lse = (t.contiguous() for t in (q, k, v, lse))
     o, do = o.to(q.dtype).contiguous(), do.to(q.dtype).contiguous()
+    if kernel == "wgmma":
+        check_tma(q, k, v, o, do)
     Skv, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -206,7 +230,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, Hkv, hd,
-            int(bool(causal)), BWD_DTYPES[q.dtype], stream)
+            int(bool(causal)), KERNELS[kernel], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{err}")

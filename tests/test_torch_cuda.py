@@ -926,7 +926,13 @@ def test_contiguous_decode_on_the_card_equals_the_cpu(arch, cuda_device):
 FLASH_BWD_SHAPES = [(2, 130, 130, 8, 2, 128, True), (1, 65, 65, 4, 4, 112, True),
                     (1, 200, 200, 4, 4, 80, True), (2, 70, 300, 6, 6, 64, False),
                     (1, 300, 70, 2, 1, 8, True), (1, 257, 257, 3, 3, 64, False)]
+# against the plain backward rounded as the kernel rounds (bf16: P and dS,
+# ops.BWD_ROUNDING), each element's limit widened by one rounding step of
+# its sum's largest term (ref.flash_attention_bwd_rounding_slack); a bf16
+# case also against the unrounded one at ATTN_TOL's bf16 limit, the size
+# of that rounding (chip_smoke.py)
 BWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 3e-2)}
+BWD_FP32_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 3e-2)}
 
 
 @pytest.mark.cuda
@@ -937,11 +943,12 @@ def test_flash_attention_backward_kernel_equals_plain(B, Sq, Skv, H, Hkv, hd,
                                                       cuda_device):
     """Gradients through ``flash_attention`` (the autograd Function: the
     forward kernel with lse, the backward kernel) against the plain
-    backward on fp32 copies of the same inputs, and the lse against the
-    plain log-sum-exp."""
+    backward on fp32 copies of the same inputs, rounded where the kernel
+    rounds and unrounded, and the lse against the plain log-sum-exp."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_bwd_plain, flash_attention_lse_plain,
+        flash_attention_bwd_plain, flash_attention_bwd_rounding_slack,
+        flash_attention_lse_plain,
     )
     rng = np.random.default_rng(Sq + hd)
     q, k, v = (_randn(rng, s, dtype, cuda_device).requires_grad_()
@@ -958,12 +965,19 @@ def test_flash_attention_backward_kernel_equals_plain(B, Sq, Skv, H, Hkv, hd,
     assert torch.equal(o2, o.detach())
     torch.testing.assert_close(lse, flash_attention_lse_plain(
         qf, kf, vf, causal), atol=1e-4, rtol=1e-5)
-    want = flash_attention_bwd_plain(qf, kf, vf, o.detach().float(), lse,
-                                     do.float(), causal)
-    atol, rtol = BWD_TOL[dtype]
-    for g, w in zip(got, want):
-        assert g.dtype == dtype
-        torch.testing.assert_close(g.float(), w, atol=atol, rtol=rtol)
+    of = o.detach().float()
+    rnd = fops.BWD_ROUNDING[dtype]
+    slack = ((0.0,) * 3 if rnd is None else flash_attention_bwd_rounding_slack(
+        qf, kf, vf, of, lse, do.float(), causal, rnd))
+    for round_to, (atol, rtol), sls in ((rnd, BWD_TOL[dtype], slack),
+                                        (None, BWD_FP32_TOL[dtype], (0.0,) * 3)):
+        want = flash_attention_bwd_plain(qf, kf, vf, of, lse, do.float(),
+                                         causal, round_to=round_to)
+        for g, w, sl in zip(got, want, sls):
+            assert g.dtype == dtype
+            err = (g.float() - w).abs()
+            assert bool((err <= atol + rtol * w.abs() + sl).all()), \
+                (round_to, float(err.max()))
 
 
 @pytest.mark.cuda
