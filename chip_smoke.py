@@ -17,8 +17,8 @@ started together):
   kernels held at tolerance 0 against their plain versions and, at one
   capacity a trace, against the port's pure-Python policy zoo; it prints
   the miss ratios, Eq. 1 against Clock and the headline gap to S3-FIFO;
-* the paged serving path: ``granite-3-8b`` at full width and depth
-  (random bf16 weights from a seeded generator) behind the
+* the paged serving path: ``granite-3-8b`` at full width, 20 of its 40
+  layers (random bf16 weights from a seeded generator) behind the
   continuous-batching ``ServingEngine``, prefill through the
   ``flash_attention`` kernel and decode through ``paged_attention``,
   with the KV pool under Clock2Q+ and a host tier.  Both kernels are
@@ -70,11 +70,16 @@ started together):
   recomputed in the backward pass, attention's gradient the
   hand-written ``flash_attention_bwd`` kernel, which is held against
   its plain version given the plain lse (with planted faults that must
-  fail the limit) and timed beside SDPA's backward; a step of five
+  fail the limit) and timed beside SDPA's backward; a step of six
   families on the card against the CPU; olmo-1b's bf16 gradients at 2
   layers against its fp32 ones; the launcher resumed from a checkpoint
   bit for bit;
-  falcon-mamba's loss refused on the card (the scan has no backward).
+* training the ssm: ``falcon-mamba-7b`` at full width cut to 8 of its 64
+  layers, trained the same way, the selective scan's gradient the
+  hand-written ``mamba_scan_bwd`` kernel, which is held against its plain
+  version from the forward kernel's chunk states (with planted faults
+  that must fail the limit by 10x) and timed beside its bound; its bf16
+  gradients at 2 layers against its fp32 ones, reported.
 
 Each phase prints one JSON line.  Then come the ``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -175,6 +180,9 @@ NEW_BF16_TOL = (1e-3, 3e-2)             # atol, rtol
 WGMMA_KV_TILE = 128     # flash_attention.cu kBN: KV rows per bf16 tile
 SERVE = dict(block_size=16, hbm_blocks=1024, max_batch=8,
              max_blocks_per_seq=160)
+# serve_main (and chaos_path on its model): granite-3-8b at full width,
+# 20 of its 40 layers, for the script's time; dense_generate runs all 40
+SERVE_LAYERS = 20
 TOKEN_BUDGET = 16_384       # prefill tokens one scheduler tick may commit
 PREFIX_LEN, N_PREFIXES = 1024, 4
 SUFFIX = (64, 960)          # unique suffix length range, inclusive
@@ -527,7 +535,8 @@ def serve_metrics(dev, eng, outs, rec, wall) -> dict:
 
 
 def serve_main(dev):
-    """Full-width, full-depth granite-3-8b behind the serving engine;
+    """Full-width granite-3-8b cut to ``SERVE_LAYERS`` layers behind the
+    serving engine;
     returns (phase record, launches per kernel, the run's decode context
     lengths as 8 octile midpoints, and what ``chaos_path`` reuses: the
     model, its params, the tokens per request, the pool's lookups and its
@@ -536,7 +545,8 @@ def serve_main(dev):
     from repro_torch.models.model import build
 
     t0 = time.perf_counter()
-    cfg = get_config("granite-3-8b")
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              n_layers=SERVE_LAYERS)
     api = build(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -564,6 +574,7 @@ def serve_main(dev):
     med = [int(np.percentile(rows, 100 * (2 * i + 1) / 16)) for i in range(8)]
     phase = dict(
         phase="serve_main", model=cfg.name, n_layers=cfg.n_layers,
+        reduced=f"layers 40 -> {SERVE_LAYERS} (the script's time)",
         d_model=cfg.d_model, dtype=cfg.dtype, n_params=cfg.n_params(),
         weights="random, torch.Generator(cuda).manual_seed(0)",
         engine=SERVE, token_budget=TOKEN_BUDGET, requests=32,
@@ -3254,12 +3265,15 @@ TRAIN_LR, TRAIN_WARMUP = 5e-4, 1
 CE_FIRST_TOL = 0.5          # the first loss within 0.5 of ln(vocab)
 TRAIN_TOL = dict(loss=1e-5, grad=1e-4, grad_norm=1e-5)   # train_consistency
 CONSISTENCY_ARCHS = ("olmoe-1b-7b", "llava-next-mistral-7b", "zamba2-2.7b",
-                     "whisper-tiny")
+                     "whisper-tiny", "falcon-mamba-7b")
 # train_bf16_grad: olmo-1b's width at 2 layers on a 2 x 4,096 batch; each
 # gradient leaf of the bf16 loss within 5 % (relative norm) of the fp32
 # loss's (tests/test_torch_bwd_check.py holds a narrow cut to half of it)
 BF16_GRAD_LAYERS, BF16_GRAD_BATCH = 2, 2
 BF16_GRAD_TOL = 0.05
+# ssm_train_main: falcon-mamba-7b at full width, 8 of its 64 layers (its
+# training state at full depth is past one card's memory)
+SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "falcon-mamba-7b", 8
 
 
 def flash_bwd_bound(B, Sq, Skv, H, Hkv, d, causal, esize=2):
@@ -3492,25 +3506,46 @@ def repeat_losses(api, oc, pipe, dev, n: int) -> list:
     return out
 
 
-def train_main(dev):
-    """Full-width, full-depth olmo-1b (bf16, random weights) trained
-    through the port's entry points: ``make_train_step`` with 2
-    microbatches of 4 x 4,096 tokens from ``TokenPipeline``; a warm-up
-    step, ``TRAIN_TIMED`` timed steps and one profiled; then
-    ``repeat_losses``: ``TRAIN_REPEAT`` steps of a fresh state that
-    repeat 2 batches, the last loss below 0.9x the first.  Returns
-    (record, launches per kernel)."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+def _train_counts() -> dict:
+    """The launch counts of the kernels a training step may run."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.mamba_scan import ops as sops
     from repro_torch.kernels.paged_attention import ops as pops
+
+    return dict(flash_attention=fops.launch_count,
+                flash_attention_bwd=fops.bwd_launch_count,
+                paged_attention=pops.launch_count,
+                mamba_scan=sops.launch_count,
+                mamba_scan_bwd=sops.bwd_launch_count)
+
+
+def _reset_train_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    fops.launch_count = fops.bwd_launch_count = pops.launch_count = 0
+    sops.launch_count = sops.bwd_launch_count = 0
+
+
+def train_run(dev, cfg, phase: str, a_layer: dict, groups: dict,
+              reduced: str, ce_init: float):
+    """``cfg`` (bf16, random weights) trained through the port's entry
+    points: ``make_train_step`` with 2 microbatches of 4 x 4,096 tokens
+    from ``TokenPipeline``; a warm-up step, ``TRAIN_TIMED`` timed steps
+    and one profiled (``groups``: ``profile_summary``'s kernel groups);
+    then ``repeat_losses``: ``TRAIN_REPEAT`` steps of a fresh state that
+    repeat 2 batches, the last loss below 0.9x the first.  The first loss
+    must lie within ``CE_FIRST_TOL`` of ``ce_init``, the cross-entropy
+    the random init predicts.  Each kernel must launch ``a_layer[kernel]``
+    times a layer a microbatch a step and no other kernel at all.
+    Returns (record, launches per kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.models.model import build
     from repro_torch.training import optim, step as step_lib
 
     t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
     api = build(cfg)
     oc = optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
     step = step_lib.make_train_step(api, step_lib.RunConfig(
@@ -3528,8 +3563,7 @@ def train_main(dev):
     state_bytes = torch.cuda.memory_allocated(dev)
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH, seed=0))
-    fops.launch_count = fops.bwd_launch_count = 0
-    pops.launch_count = sops.launch_count = 0
+    _reset_train_counts()
     steps, host_s = [], []
     for i in range(1 + TRAIN_TIMED):
         batch, hs = _train_batch(pipe, i, dev)
@@ -3541,8 +3575,8 @@ def train_main(dev):
                           loss=float(m["loss"]),
                           grad_norm=float(m["grad_norm"]),
                           lr=float(m["lr"]), host_batch_ms=1e3 * hs))
-    per_step = dict(flash_attention=fops.launch_count // len(steps),
-                    flash_attention_bwd=fops.bwd_launch_count // len(steps))
+    per_step = {k: n // len(steps) for k, n in _train_counts().items()
+                if k in a_layer}
     batch, _ = _train_batch(pipe, 1 + TRAIN_TIMED, dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3551,8 +3585,7 @@ def train_main(dev):
         state, m = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    prof_rec = profile_summary(prof, wall, {
-        "flash_bwd": "flash_bwd::", "flash_fwd": "flash_attention_kernel"})
+    prof_rec = profile_summary(prof, wall, groups)
     peak = torch.cuda.max_memory_allocated(dev)
     hit_ratio, lookups = pipe.index_hit_ratio, pipe.lookups
     del prof
@@ -3561,51 +3594,85 @@ def train_main(dev):
     gc.collect()
     repeat = repeat_losses(api, oc, pipe, dev, TRAIN_REPEAT)
     n_steps = len(steps) + 1 + TRAIN_REPEAT
-    launches = dict(flash_attention=fops.launch_count,
-                    flash_attention_bwd=fops.bwd_launch_count,
-                    paged_attention=pops.launch_count,
-                    mamba_scan=sops.launch_count)
+    launches = _train_counts()
     gc.collect()
     torch.cuda.empty_cache()
 
     losses = [s["loss"] for s in steps] + repeat
     ln_v = float(np.log(cfg.vocab))
-    want = dict(flash_attention=2 * TRAIN_MICRO * cfg.n_layers * n_steps,
-                flash_attention_bwd=TRAIN_MICRO * cfg.n_layers * n_steps,
-                paged_attention=0, mamba_scan=0)
-    require(all(np.isfinite(losses)), f"train_main: a loss is not finite "
+    want = {k: TRAIN_MICRO * cfg.n_layers * n_steps * a_layer.get(k, 0)
+            for k in launches}
+    require(all(np.isfinite(losses)), f"{phase}: a loss is not finite "
                                       f"({losses})")
-    require(abs(steps[0]["loss"] - ln_v) <= CE_FIRST_TOL,
-            f"train_main: first loss {steps[0]['loss']} not within "
-            f"{CE_FIRST_TOL} of ln {cfg.vocab} = {ln_v}")
-    require(repeat[-1] < 0.9 * repeat[0], f"train_main: the repeated "
+    require(abs(steps[0]["loss"] - ce_init) <= CE_FIRST_TOL,
+            f"{phase}: first loss {steps[0]['loss']} not within "
+            f"{CE_FIRST_TOL} of {ce_init} (ln {cfg.vocab} = {ln_v})")
+    require(repeat[-1] < 0.9 * repeat[0], f"{phase}: the repeated "
             f"batches' loss did not fall below 0.9x its first ({repeat})")
-    require(launches == want, f"train_main: launches {launches}, want {want}"
+    require(launches == want, f"{phase}: launches {launches}, want {want}"
             f" (a layer a microbatch a step: the forward twice, with the "
             f"remat's recompute, the backward once)")
     timed = [s["ms"] for s in steps[1:]]
     p50 = statistics.median(timed)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     return dict(
-        phase="train_main", arch=cfg.name, n_params=n_params,
+        phase=phase, arch=cfg.name, family=cfg.family, n_params=n_params,
         n_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
         vocab=cfg.vocab, dtype=cfg.dtype, seq_len=TRAIN_SEQ,
         global_batch=TRAIN_BATCH, microbatches=TRAIN_MICRO,
         tokens_per_step=tokens, lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-        reduced=f"batch 256 -> {TRAIN_BATCH} (train_4k's global batch cut "
-                f"to one card), {len(steps) + 1 + TRAIN_REPEAT} steps",
+        reduced=f"{reduced}, {len(steps) + 1 + TRAIN_REPEAT} steps",
         init_s=init_s, state_bytes=state_bytes, steps=steps,
         step_ms_p50=p50, step_ms_timed=timed, tokens_per_s=tokens / p50 * 1e3,
         model_tflops=6 * n_params * tokens / (p50 / 1e3) / 1e12,
         peak_device_bytes=peak, index_cache=dict(
             hit_ratio=hit_ratio, lookups=lookups,
             blocks=pipe.dc.index_cache_blocks),
-        first_loss=steps[0]["loss"], ln_vocab=ln_v,
+        first_loss=steps[0]["loss"], ln_vocab=ln_v, ce_init=ce_init,
         repeat_from="a fresh state (seed 0), batches 0 and 1 in turn",
         repeat_losses=repeat,
         repeat_ratio=repeat[-1] / repeat[0], launches=launches,
         launches_per_step=per_step, profile=prof_rec,
         seconds=time.perf_counter() - t_phase), launches
+
+
+def train_main(dev):
+    """Full-width, full-depth olmo-1b through ``train_run``: attention's
+    forward kernel twice a layer a microbatch (with the remat's
+    recompute) and its backward kernel once."""
+    from repro_torch.configs import get_config
+
+    return train_run(dev, get_config(TRAIN_ARCH), "train_main",
+                     dict(flash_attention=2, flash_attention_bwd=1),
+                     {"flash_bwd": "flash_bwd::",
+                      "flash_fwd": "flash_attention_kernel"},
+                     f"batch 256 -> {TRAIN_BATCH} (train_4k's global batch "
+                     f"cut to one card)", math.log(get_config(TRAIN_ARCH).vocab))
+
+
+def ssm_train_main(dev):
+    """falcon-mamba-7b at full width cut to ``SSM_TRAIN_LAYERS`` of its 64
+    layers through ``train_run`` on train_main's cell: the scan's forward
+    kernel twice a layer a microbatch (with the remat's recompute) and its
+    backward kernel once, no attention kernel.  Its first loss is held
+    to ln V + 1/2, not ln V: the untied head (std 1/sqrt(d_model)) on the
+    final norm's unit-RMS stream gives logits of variance 1, and the mean
+    log-sum-exp of V such normals is about ln V + 1/2 (olmo-1b's tied
+    0.02 embedding gives variance 0.82, its first loss ln V + 0.359)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(SSM_TRAIN_ARCH),
+                              n_layers=SSM_TRAIN_LAYERS)
+    return train_run(dev, cfg, "ssm_train_main",
+                     dict(mamba_scan=2, mamba_scan_bwd=1),
+                     {"scan_bwd": "mamba_scan_bwd_kernel",
+                      "scan_fwd": "mamba_scan_kernel"},
+                     f"layers 64 -> {SSM_TRAIN_LAYERS} (the 7.27B "
+                     f"parameters' bf16 params, fp32 moments and "
+                     f"accumulators are about 100 GB, past one card's 80; "
+                     f"8 layers, 1.375B parameters, about 19 GB), batch 256 "
+                     f"-> {TRAIN_BATCH} (train_4k's global batch cut to one "
+                     f"card)", math.log(cfg.vocab) + 0.5)
 
 
 def grad_rel_errors(got, want) -> dict:
@@ -3703,10 +3770,13 @@ def _consistency_cfg(arch: str):
 def train_consistency(dev):
     """One train step on the card against the same step of the port on
     the CPU (plain versions), from the same numpy state and batch, for
-    olmo-1b's width cut to 2 layers and the reduced olmoe, llava, zamba2
-    and whisper (fp32): loss, every gradient leaf and grad_norm held to
-    ``TRAIN_TOL``."""
+    olmo-1b's width cut to 2 layers and the reduced olmoe, llava, zamba2,
+    whisper and falcon-mamba (fp32): loss, every gradient leaf and
+    grad_norm held to ``TRAIN_TOL``.  The card's step must run the
+    family's backward kernel: the scan's for the ssm, flash's for the
+    others."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba_scan import ops as sops
     from repro_torch.launch.specs import make_batch
     from repro_torch.models.model import build
     from repro_torch.training import optim, step as step_lib
@@ -3723,7 +3793,8 @@ def train_consistency(dev):
         out = {}
         for d in ("cpu", dev):
             st = step_lib.train_state_from_numpy(cfg, tree, oc, device=d)
-            b0 = fops.bwd_launch_count
+            bwd = sops if cfg.family == "ssm" else fops
+            b0 = bwd.bwd_launch_count
             loss, _, grads = step_lib.value_and_grad(
                 api, st.params, {k: v.to(d) for k, v in batch.items()})
             _, new_opt, om = optim.adamw_update(st.params, grads, st.opt, oc)
@@ -3732,7 +3803,7 @@ def train_consistency(dev):
                            float(om["grad_norm"]))
             if d != "cpu":
                 torch.cuda.synchronize()
-                require(fops.bwd_launch_count > b0, f"train_consistency "
+                require(bwd.bwd_launch_count > b0, f"train_consistency "
                         f"{arch}: the card's step ran no backward kernel")
         (lc, gc_, nc), (lg, gg, ng) = out["cpu"], out[str(dev)]
         loss_rel = abs(lg - lc) / abs(lc)
@@ -3831,30 +3902,301 @@ def _state_leaves(state):
     return [t for _, t in _leaf_paths(state)]
 
 
-def ssm_train_refused(dev):
-    """falcon-mamba's reduced loss with params that require grad must
-    raise on the card: the ``mamba_scan`` kernel has no backward yet."""
-    from repro_torch.configs import get_config, reduced
+# -- training the ssm: the scan backward kernel ----------------------------------
+
+SCAN_GRADS = ("du", "ddt", "dB", "dC", "dA_log")
+# B, S, din, N, u/B/C type, dt type, x_proj's dt_rank (B and C as views of
+# its output; 0: views of one (B, S, 2N) tensor), dh_last given:
+# falcon-mamba's training shape, fp32 at a mid size, the edges (one step,
+# a ragged chunk and din off the 64-channel block, N = 64 and N = 1), dt in
+# u's type, a final-state gradient
+SCAN_BWD_CASES = [(4, 4096, 8192, 16, "bfloat16", "float32", 256, False),
+                  (2, 1000, 512, 16, "float32", "float32", 0, False),
+                  (1, 1, 64, 16, "float32", "float32", 0, False),
+                  (1, 65, 100, 4, "float32", "float32", 0, False),
+                  (2, 130, 96, 64, "float32", "float32", 0, False),
+                  (1, 64, 64, 1, "float32", "float32", 0, False),
+                  (2, 130, 96, 64, "bfloat16", "bfloat16", 0, False),
+                  (2, 300, 200, 16, "bfloat16", "float32", 0, True)]
+SCAN_TRAIN_SHAPE = SCAN_BWD_CASES[0][:4]   # ssm_train_main's microbatch
+SCAN_FAULTS = ("lagged_state", "no_carry_decay", "dropped_block")
+FAULT_MARGIN = 10.0         # each planted fault's limit use at least this
+
+
+def bf16_half_step(w: torch.Tensor) -> torch.Tensor:
+    """Half a bf16 step of each element of ``w`` (2^(e - 8) for |w| in
+    [2^e, 2^(e+1)), 0 at 0): the most a correct rounding to bf16 moves
+    it."""
+    m, e = torch.frexp(w.float())
+    return torch.ldexp(torch.ones_like(m), e - 9) * (w != 0)
+
+
+def scan_grad_limit_use(got, want) -> dict:
+    """{gradient: max |got - want| / limit} of the scan's five gradients
+    against fp32 ``want``: the limit ``TRAIN_TOL["grad"]`` of the largest
+    |want|, plus, for a bf16 output, half a bf16 step of each element
+    (``bf16_half_step``).  Above 1 fails."""
+    out = {}
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        w = w.float()
+        lim = TRAIN_TOL["grad"] * float(w.abs().max()) + 1e-30
+        if g.dtype == torch.bfloat16:
+            lim = lim + bf16_half_step(w)
+        out[name] = float(((g.float() - w).abs() / lim).max())
+    return out
+
+
+def scan_bwd_fault(ins, states, dy, dh_last, fault: str, channels: int):
+    """The scan's fp32 gradients with a planted fault, from the plain
+    recurrence: ``lagged_state`` uses h_t where h_{t-1} belongs,
+    ``no_carry_decay`` carries g_{t+1} without a_{t+1}, ``dropped_block``
+    leaves the first ``channels`` channels' (one kernel block's) partial
+    out of dB and dC."""
+    from repro_torch.kernels.mamba_scan.ref import (
+        STATE_CHUNK, mamba_scan_bwd_plain,
+    )
+
+    u, dt, Bc, Cc, A_log = (t.float() for t in ins)
+    dy = dy.float()
+    if fault == "dropped_block":
+        c = slice(0, channels)
+        full = mamba_scan_bwd_plain(u, dt, Bc, Cc, A_log, states, dy, dh_last)
+        part = mamba_scan_bwd_plain(
+            u[..., c], dt[..., c], Bc, Cc, A_log[c], states[..., c, :],
+            dy[..., c], None if dh_last is None else dh_last[:, c])
+        return full[:2] + (full[2] - part[2], full[3] - part[3], full[4])
+    A = -torch.exp(A_log)
+    S = u.shape[1]
+    carry = torch.zeros_like(states[:, 0]) if dh_last is None else dh_last
+    du, ddt, dB, dC = (torch.empty_like(t) for t in (u, dt, Bc, Cc))
+    dA = torch.zeros_like(A)
+    for t0 in reversed(range(0, S, STATE_CHUNK)):
+        hs = [states[:, t0 // STATE_CHUNK]]
+        for t in range(t0, min(S, t0 + STATE_CHUNK)):
+            hs.append(torch.exp(dt[:, t, :, None] * A) * hs[-1]
+                      + (dt[:, t] * u[:, t])[..., None] * Bc[:, t, None, :])
+        for t in reversed(range(t0, min(S, t0 + STATE_CHUNK))):
+            h = hs[t - t0 + 1]
+            h_prev = h if fault == "lagged_state" else hs[t - t0]
+            a = torch.exp(dt[:, t, :, None] * A)
+            g = dy[:, t, :, None] * Cc[:, t, None, :] + carry
+            dC[:, t] = torch.sum(dy[:, t, :, None] * h, dim=1)
+            dB[:, t] = torch.sum(g * (dt[:, t] * u[:, t])[..., None], dim=1)
+            gb = torch.sum(g * Bc[:, t, None, :], dim=-1)
+            du[:, t] = dt[:, t] * gb
+            gah = g * a * h_prev
+            ddt[:, t] = u[:, t] * gb + torch.sum(gah * A, dim=-1)
+            dA += torch.sum(gah * dt[:, t, :, None], dim=0)
+            carry = g if fault == "no_carry_decay" else a * g
+    return du, ddt, dB, dC, A * dA
+
+
+def scan_bwd_case(dev, case, rng) -> dict:
+    """One ``SCAN_BWD_CASES`` case on ``dev``: the forward kernel's y and
+    h_last with and without its states (bit-equal), its states against
+    the plain ``chunk_states`` (fp32 inputs: 1e-4, bf16: 1e-3, as
+    ``mamba_scan_vs_plain`` holds h_last); the backward kernel's five
+    gradients, from the kernel's states, against the plain backward on
+    fp32 copies of the same inputs and states (``scan_grad_limit_use``),
+    two calls bit-equal; and each planted fault's limit use
+    (``scan_bwd_fault``; None where the fault leaves the gradients
+    unchanged, as the carry at S = 1)."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import (
+        mamba_scan_bwd_plain, mamba_scan_plain,
+    )
+
+    B, S, din, N, dt_name, dtd_name, R, with_dh = case
+    dtype = getattr(torch, dt_name)
+    ins = list(scan_inputs(dev, (B, S, din, N), dtype, rng, R=R))
+    ins[1] = ins[1].to(getattr(torch, dtd_name))
+    g = lambda *s: torch.from_numpy(
+        rng.normal(0, 1, s).astype(np.float32)).to(dev)
+    dy = g(B, S, din).to(dtype)
+    dh = g(B, din, N) if with_dh else None
+    y, h, states = sops.mamba_scan_fwd(*ins)
+    y0, h0 = sops.mamba_scan(*ins)
+    _, _, st_plain = mamba_scan_plain(*ins, chunk_states=True)
+    st_tol = 1e-4 if dt_name == "float32" else 1e-3
+    st_err = float((states - st_plain).abs().max())
+    b0 = sops.bwd_launch_count
+    got = sops.mamba_scan_bwd(*ins, states, dy, dh)
+    again = sops.mamba_scan_bwd(*ins, states, dy, dh)
+    launches = sops.bwd_launch_count - b0
+    f32 = [t.float() for t in ins]
+    want = mamba_scan_bwd_plain(*f32, states, dy.float(), dh)
+    use = scan_grad_limit_use(got, want)
+    channels = sops.bwd_plan(B, S, din, N).channels
+    faults = {}
+    for f in SCAN_FAULTS:
+        bad = scan_bwd_fault(f32, states, dy, dh, f, channels)
+        faults[f] = (None if all(torch.equal(a, w) for a, w in zip(bad, want))
+                     else max(scan_grad_limit_use(
+                         [a.to(x.dtype) for a, x in zip(bad, got)],
+                         want).values()))
+    return dict(
+        B=B, S=S, din=din, N=N, dtype=dt_name, dt_dtype=dtd_name,
+        bc_stride_t=int(ins[2].stride(1)), dh_last=with_dh,
+        plan=sops.bwd_plan(B, S, din, N)._asdict(),
+        fwd_states_bit_equal=bool(torch.equal(y, y0) and torch.equal(h, h0)),
+        states_max_abs_err=st_err, states_tol=st_tol,
+        tol=dict(rel=TRAIN_TOL["grad"],
+                 bf16_elementwise="half a bf16 step of |want|"),
+        out_dtypes=[str(t.dtype) for t in got],
+        max_abs_err=dict(zip(SCAN_GRADS, (
+            float((a.float() - w).abs().max()) for a, w in zip(got, want)))),
+        want_max=dict(zip(SCAN_GRADS, (float(w.abs().max()) for w in want))),
+        limit_use=use, max_limit_use=max(use.values()),
+        bit_equal_calls=all(torch.equal(a, b) for a, b in zip(got, again)),
+        launches=launches, fault_limit_use=faults)
+
+
+def scan_bwd_vs_plain(dev):
+    """``scan_bwd_case`` at every ``SCAN_BWD_CASES`` case: every limit use
+    at most 1, the states within their limit, two calls bit-equal, one
+    launch a call, and every planted fault that changes the gradients at
+    ``FAULT_MARGIN`` x the limit or more.  Returns the record."""
+    rng = np.random.default_rng(25)
+    t0 = time.perf_counter()
+    rec = dict(phase="scan_bwd_vs_plain", cases=[])
+    for case in SCAN_BWD_CASES:
+        c = scan_bwd_case(dev, case, rng)
+        require(c["fwd_states_bit_equal"], f"mamba_scan {case}: y or h_last "
+                f"differ with the states output")
+        require(c["states_max_abs_err"] <= c["states_tol"], f"mamba_scan "
+                f"{case}: states != plain ({c['states_max_abs_err']})")
+        require(c["max_limit_use"] <= 1.0, f"mamba_scan_bwd {case} != plain"
+                f" (limit use {c['limit_use']}, max err {c['max_abs_err']})")
+        require(c["bit_equal_calls"], f"mamba_scan_bwd {case}: two calls "
+                                      f"differ")
+        require(c["launches"] == 2, f"mamba_scan_bwd {case}: "
+                f"{c['launches']} launches for 2 calls")
+        for f, use in c["fault_limit_use"].items():
+            require(use is None or use >= FAULT_MARGIN, f"the scan's "
+                    f"gradient check at {case} passes its {f} fault within "
+                    f"{FAULT_MARGIN}x (limit use {use})")
+        rec["cases"].append(c)
+        gc.collect()
+        torch.cuda.empty_cache()
+    cs = rec["cases"]
+    rec["max_abs_err"] = max(max(c["max_abs_err"].values()) for c in cs)
+    rec["max_limit_use"] = max(c["max_limit_use"] for c in cs)
+    rec["max_states_err"] = max(c["states_max_abs_err"] for c in cs)
+    rec["min_fault_limit_use"] = {
+        f: min(c["fault_limit_use"][f] for c in cs
+               if c["fault_limit_use"][f] is not None) for f in SCAN_FAULTS}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def scan_bwd_bound(shape, esize=2):
+    """``scan_bound``'s terms for one backward call: u, dt (fp32), dy, B,
+    C, A_log and the states read once, du, ddt (fp32), dB, dC and dA_log
+    written once (u, dy, du, B, C, dB, dC in ``esize`` bytes); B S din N
+    exponentials at the special-function units' rate."""
+    B, S, din, N = shape
+    nch = -(-S // 64)
+    moved = (B * S * din * (3 * esize + 8) + 4 * B * S * N * esize
+             + 4 * B * nch * din * N + 8 * din * N)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exps = B * S * din * N
+    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+    exps_ms = 1e3 * exps / (SFU_PER_CLK_SM * sms * SM_CLOCK_HZ)
+    by = "bytes" if bytes_ms >= exps_ms else "operations"
+    return max(bytes_ms, exps_ms), by, moved, bytes_ms, exps, exps_ms
+
+
+def scan_bwd_time(dev):
+    """CUDA-event medians at ``SCAN_TRAIN_SHAPE`` (bf16 u/B/C as views of
+    x_proj's output, fp32 dt), L2 emptied by a 1 GiB read before each
+    call: the backward (the kernel and the wrapper's sums of its
+    partials) beside its bound and the plain backward; the forward with
+    and without its states.  No PyTorch call computes the scan's
+    gradient, so there is no library yardstick."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_bwd_plain
+
+    rng = np.random.default_rng(26)
+    flush = torch.empty(256 << 20, dtype=torch.float32, device=dev)
+    ins = scan_inputs(dev, SCAN_TRAIN_SHAPE, torch.bfloat16, rng,
+                      R=SCAN_DT_RANK)
+    _, _, states = sops.mamba_scan_fwd(*ins)
+    dy = torch.from_numpy(rng.normal(0, 1, ins[0].shape).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    before = sops.bwd_launch_count
+    runs = warm_ms(lambda: sops.mamba_scan_bwd(*ins, states, dy), flush, 10)
+    require(sops.bwd_launch_count == before + len(runs) + 1,
+            "timed scan backward call not one launch each")
+    bound, by, moved, bytes_ms, exps, exps_ms = scan_bwd_bound(
+        SCAN_TRAIN_SHAPE)
+    plain = statistics.median(warm_ms(
+        lambda: mamba_scan_bwd_plain(*ins, states, dy), flush, 1))
+    fwd = [statistics.median(warm_ms(f, flush, 10)) for f in (
+        lambda: sops.mamba_scan(*ins), lambda: sops.mamba_scan_fwd(*ins),
+        lambda: sops.mamba_scan_fwd(*ins), lambda: sops.mamba_scan(*ins))]
+    ms = statistics.median(runs)
+    shape = (f"bf16 u/B/C/dy (B/C views of x_proj's output), fp32 dt, "
+             f"(B, S, din, N) = {SCAN_TRAIN_SHAPE}")
+    return dict(
+        phase="scan_bwd_time",
+        bwd=dict(shape=shape, ms_runs=runs, ms=ms, bytes=moved,
+                 bytes_ms=bytes_ms, exps=exps, exps_ms=exps_ms,
+                 bound_ms=bound, bound_by=by, roofline_share=bound / ms,
+                 plain_ms=plain, library_ms=None,
+                 plan=sops.bwd_plan(*SCAN_TRAIN_SHAPE)._asdict(),
+                 ptxas=kbuild.info("mamba_scan_bwd").get("ptxas")),
+        fwd=dict(shape=shape, order="no states, states, states, no states",
+                 ms=[fwd[0], fwd[3]], ms_with_states=[fwd[1], fwd[2]],
+                 states_bytes=int(states.numel()) * 4),
+        l2_flush_bytes=flush.numel() * 4)
+
+
+def ssm_bf16_grad(dev):
+    """The bf16 training gradient of falcon-mamba against the fp32 one,
+    reported: its full width cut to ``BF16_GRAD_LAYERS`` layers, random
+    params made in bf16 and the same values in fp32, one batch of
+    ``BF16_GRAD_BATCH`` x 4,096 tokens, each gradient leaf's relative
+    error (``grad_rel_errors``); a scan forward and its remat recompute
+    and a backward a layer in each loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import ops as sops
     from repro_torch.launch.specs import make_batch
     from repro_torch.models.config import ShapeCell
-    from repro_torch.models.model import build
+    from repro_torch.models.model import (
+        build, params_from_numpy, params_to_numpy,
+    )
     from repro_torch.training import step as step_lib
 
-    cfg = reduced(get_config("falcon-mamba-7b"))
-    api = build(cfg)
-    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
-    batch = make_batch(cfg, ShapeCell("t", 32, 4, "train"), seed=5,
-                       device=dev)
-    try:
-        step_lib.value_and_grad(api, params, batch)
-        message = None
-    except RuntimeError as e:
-        message = str(e)
-    require(message is not None and "mamba_scan" in message
-            and "item 19" in message,
-            f"ssm_train_refused: the loss did not raise ({message})")
-    return dict(phase="ssm_train_refused", arch=cfg.name, raised=True,
-                message=message)
+    t0 = time.perf_counter()
+    c16 = dataclasses.replace(get_config(SSM_TRAIN_ARCH),
+                              n_layers=BF16_GRAD_LAYERS)
+    c32 = dataclasses.replace(c16, dtype="float32", param_dtype="float32")
+    a16, a32 = build(c16), build(c32)
+    p16 = a16.init(torch.Generator(device=dev).manual_seed(0), dev)
+    p32 = params_from_numpy(c32, params_to_numpy(p16), dev)
+    batch = make_batch(c16, ShapeCell("t", TRAIN_SEQ, BF16_GRAD_BATCH,
+                                      "train"), seed=6, device=dev)
+    l32, _, g32 = step_lib.value_and_grad(a32, p32, batch)
+    del p32
+    s0, b0 = sops.launch_count, sops.bwd_launch_count
+    l16, _, g16 = step_lib.value_and_grad(a16, p16, batch)
+    torch.cuda.synchronize()
+    launches = [sops.launch_count - s0, sops.bwd_launch_count - b0]
+    rel = grad_rel_errors(g16, g32)
+    del g16, g32, p16, a16, a32, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(launches == [2 * BF16_GRAD_LAYERS, BF16_GRAD_LAYERS],
+            f"ssm_bf16_grad: scan launches {launches}, want a forward and "
+            f"its remat recompute and a backward a layer")
+    return dict(
+        phase="ssm_bf16_grad", arch=c16.name, n_layers=c16.n_layers,
+        d_model=c16.d_model, d_inner=c16.d_inner, vocab=c16.vocab,
+        batch=BF16_GRAD_BATCH, seq_len=TRAIN_SEQ, gated=False,
+        loss_bf16=float(l16), loss_fp32=float(l32), launches=launches,
+        rel_err=rel, max_rel_err=max(rel.values()),
+        seconds=time.perf_counter() - t0)
 
 
 # -- the sharded service and the online tuner on the day-scale stream ---------
@@ -4141,6 +4483,7 @@ def main() -> int:
                        ("flash_attention_bwd", fops.BWD_SOURCE),
                        ("paged_attention", pops.SOURCE),
                        ("mamba_scan", sops.SOURCE),
+                       ("mamba_scan_bwd", sops.BWD_SOURCE),
                        ("s3fifo_sim", s3build.SOURCE),
                        ("simple_sim", smbuild.SOURCE)])
     build_s = time.perf_counter() - t0
@@ -4150,8 +4493,8 @@ def main() -> int:
               build_s=build_s, builds={
                   k: kbuild.info(k) for k in
                   ("cache_sim", "flash_attention", "flash_attention_bwd",
-                   "paged_attention", "mamba_scan", "s3fifo_sim",
-                   "simple_sim")}))
+                   "paged_attention", "mamba_scan", "mamba_scan_bwd",
+                   "s3fifo_sim", "simple_sim")}))
 
     t0 = time.perf_counter()
     all_traces = suite_traces(traces)
@@ -4442,13 +4785,23 @@ def main() -> int:
     emit(train_consistency(dev))
     emit(train_bf16_grad(dev))
     emit(train_resume(dev))
-    emit(ssm_train_refused(dev))
+    # -- training the ssm: the scan backward kernel, falcon-mamba ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    scan_bwd = scan_bwd_vs_plain(dev)
+    emit(scan_bwd)
+    sbt = scan_bwd_time(dev)
+    emit(sbt)
+    ssm_train, ssm_train_launches = ssm_train_main(dev)
+    emit(ssm_train)
+    emit(ssm_bf16_grad(dev))
 
     family_launches = dict(moe_main=moe_launches, moe_wide=wide_launches,
                            vlm_main=vlm_launches,
                            dense_generate=dense["launches"],
                            encdec_main=enc_launches,
-                           train_main=train_launches)
+                           train_main=train_launches,
+                           ssm_train_main=ssm_train_launches)
     by_family = {k: {p: n[k] for p, n in family_launches.items()}
                  for k in ("flash_attention", "paged_attention")}
 
@@ -4548,13 +4901,38 @@ def main() -> int:
         dict(name="mamba_scan", route="cuda",
              source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
              replaces="src/repro/kernels/mamba_scan/mamba_scan.py:23",
-             launches=ssm_launches["mamba_scan"],
-             max_abs_err=scan_check["max_abs_err"], ms=st["ms"],
+             launches=ssm_launches["mamba_scan"]
+             + ssm_train_launches["mamba_scan"],
+             launches_by_path=dict(
+                 ssm_main=ssm_launches["mamba_scan"],
+                 ssm_train_main=ssm_train_launches["mamba_scan"]),
+             max_abs_err=scan_check["max_abs_err"],
+             max_states_abs_err=scan_bwd["max_states_err"],
+             ms_with_states=sbt["fwd"]["ms_with_states"],
+             ms_without_states=sbt["fwd"]["ms"],
+             ms_states_shape=sbt["fwd"]["shape"], ms=st["ms"],
              plain_ms=scan_check["plain_ms"], bound_ms=st["bound_ms"],
              bound_by=st["bound_by"], library_ms=None, ms_shape=st["shape"],
              plain_shape=scan_check["plain_shape"],
              kernel_ms_at_plain_shape=scan_check[
                  "kernel_ms_at_plain_shape"]),
+        dict(name="mamba_scan_bwd", route="cuda",
+             source="src/repro_torch/kernels/mamba_scan/csrc/"
+                    "mamba_scan_bwd.cu",
+             replaces="no Pallas kernel: XLA's autodiff of "
+                      "src/repro/models/mamba.py:128-144 (the chunked "
+                      "associative scan)",
+             launches=ssm_train_launches["mamba_scan_bwd"],
+             launches_by_path=dict(
+                 ssm_train_main=ssm_train_launches["mamba_scan_bwd"]),
+             max_abs_err=scan_bwd["max_abs_err"],
+             max_limit_use=scan_bwd["max_limit_use"],
+             min_fault_limit_use=scan_bwd["min_fault_limit_use"],
+             ms=sbt["bwd"]["ms"], plain_ms=sbt["bwd"]["plain_ms"],
+             bound_ms=sbt["bwd"]["bound_ms"], bound_by=sbt["bwd"]["bound_by"],
+             library_ms=None, ms_shape=sbt["bwd"]["shape"],
+             plain_shape=sbt["bwd"]["shape"],
+             ptxas=kbuild.info("mamba_scan_bwd").get("ptxas")),
         policy_kernel_row("s3fifo_sim", cmp_times, cmp, evp, ("s3fifo",),
                           "w01-skewed/meta", all_traces,
                           tuner_path=tuner_launches["s3fifo_sim"]),

@@ -69,11 +69,16 @@ def _target(name: str, source: pathlib.Path) -> pathlib.Path:
 
 def build_many(kernels: Sequence[Tuple[str, pathlib.Path]]) -> None:
     """Build every ``(name, source)`` whose library is missing, one
-    ``nvcc`` each, all started together.  Raises if any fails."""
+    ``nvcc`` each, all started together; two entries with one library
+    (an unchanged source of an earlier checkout) build it once.  Raises
+    if any fails."""
     t0 = time.perf_counter()
-    procs = []
+    procs, targets = [], set()
     for name, source in kernels:
         target = _target(name, source)
+        if target in targets:
+            continue
+        targets.add(target)
         if target.exists():
             if not info(name):  # found, not built by this process
                 info(name).update(seconds=0.0, built_now=False, ptxas=[],

@@ -10,6 +10,11 @@
 // u's type.  Unlike the TPU kernel, which keeps h in VMEM scratch and drops
 // it, this one also writes the final state h_last (B, din, N) in fp32: the
 // model's decode starts from it, and writing it here spares a second pass.
+// For training it also writes, when given a `states` buffer, the state
+// before each chunk of kChunk steps: the backward (mamba_scan_bwd.cu)
+// recomputes each chunk's states from there with the same scan_step
+// (scan.cuh), so its states equal these bit for bit.  Without the buffer
+// (inference) the kernel does what it did without one.
 // There is no padding: the time loop stops at S, which leaves the same state
 // as the reference's ragged tail masked with dt = 0.
 //
@@ -46,37 +51,19 @@
 // polynomial on the FMA pipe was slower, and so were 4 threads a channel
 // and 1 (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "scan.cuh"
 
 namespace {
 
+using scan::exp2_approx;
+using scan::from_f;
+using scan::kChunk;
+using scan::kLog2e;
+using scan::kMaxState;
+using scan::to_f;
+
 constexpr int kThreads = 128;   // threads per block
-constexpr int kChunk = 64;      // time steps staged per pass
 constexpr int kBatch = 16;      // loads in flight per thread while staging
-constexpr int kMaxState = 64;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// 2^x on the special-function unit: one MUFU.EX2, relative error about
-// 2^-22, subnormal results flushed to 0.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
 
 struct Strides {  // element strides of (batch, time); the last axis is 1
   long long u_b, u_s, dt_b, dt_s, b_b, b_s, c_b, c_s;
@@ -94,18 +81,22 @@ size_t smem_bytes(int NP, int split) {
 // (falcon-mamba's 16), compiled without that test in the step loop.
 // kSplit: threads a channel (1 or 2); each of kSplit neighbouring threads
 // runs NP / kSplit of the channel's states, and __shfl_xor_sync adds their
-// parts of y.  The second argument of __launch_bounds__ is the blocks an SM
-// is promised by the register budget (ops.scan_plan mirrors it).
+// parts of y.  kStates: the state before each chunk is written (training);
+// the inference kernel, without it, has no trace of that output.  The
+// second argument of __launch_bounds__ is the blocks an SM is promised by
+// the register budget (ops.scan_plan mirrors it).
 template <int NT>
 constexpr int min_blocks() { return NT <= 16 ? 4 : 2; }
 
-template <typename T, typename TD, int NP, bool kFull, int kSplit>
+template <typename T, typename TD, int NP, bool kFull, int kSplit,
+          bool kStates>
 __global__ void __launch_bounds__(kThreads, min_blocks<NP / kSplit>())
 mamba_scan_kernel(
     const T* __restrict__ u, const TD* __restrict__ dt,
     const T* __restrict__ Bc, const T* __restrict__ Cc,
     const float* __restrict__ A_log, T* __restrict__ y,
-    float* __restrict__ h_last, Strides st, int S, int din, int N) {
+    float* __restrict__ h_last, float* __restrict__ states, Strides st,
+    int S, int din, int N) {
   constexpr int kCh = kThreads / kSplit;   // channels per block
   constexpr int NT = NP / kSplit;          // states per thread
   extern __shared__ float smem[];
@@ -140,6 +131,14 @@ mamba_scan_kernel(
 
   for (int t0 = 0; t0 < S; t0 += kChunk) {
     const int steps = min(kChunk, S - t0);
+    // The state before the chunk, for the backward (training only).
+    if (kStates && live) {
+      float* sp = states + ((b * ((S + kChunk - 1) / kChunk) + t0 / kChunk) *
+                                din + d) * (long long)N + n0;
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+        if (n0 + i < N) sp[i] = h[i];
+    }
     // Stage u and dt of the block's channels: consecutive threads take
     // consecutive channels of one step, so the loads coalesce.  Loads go
     // to registers kBatch at a time, all issued before the first store, so
@@ -206,7 +205,8 @@ mamba_scan_kernel(
         for (int k = 0; k < 4; ++k) {
           const int i = 4 * q + k;
           if (kFull || n0 + i < N) {
-            h[i] = exp2_approx(dtv * A2[i]) * h[i] + dtu * bq[k];
+            h[i] = scan::scan_step(exp2_approx(dtv * A2[i]), h[i], dtu,
+                                   bq[k]);
             acc[k] += h[i] * cq[k];
           }
         }
@@ -230,11 +230,15 @@ mamba_scan_kernel(
 
 template <typename T, typename TD, int NP, int kSplit>
 int launch_n(const void* u, const void* dt, const void* Bc, const void* Cc,
-             const void* A_log, void* y, void* h_last, const Strides& st,
-             int B, int S, int din, int N, cudaStream_t stream) {
+             const void* A_log, void* y, void* h_last, void* states,
+             const Strides& st, int B, int S, int din, int N,
+             cudaStream_t stream) {
   const size_t smem = smem_bytes(NP, kSplit);
-  auto kern = N == NP ? mamba_scan_kernel<T, TD, NP, true, kSplit>
-                      : mamba_scan_kernel<T, TD, NP, false, kSplit>;
+  auto kern = N == NP
+      ? (states ? mamba_scan_kernel<T, TD, NP, true, kSplit, true>
+                : mamba_scan_kernel<T, TD, NP, true, kSplit, false>)
+      : (states ? mamba_scan_kernel<T, TD, NP, false, kSplit, true>
+                : mamba_scan_kernel<T, TD, NP, false, kSplit, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -244,67 +248,63 @@ int launch_n(const void* u, const void* dt, const void* Bc, const void* Cc,
       static_cast<const T*>(u), static_cast<const TD*>(dt),
       static_cast<const T*>(Bc), static_cast<const T*>(Cc),
       static_cast<const float*>(A_log), static_cast<T*>(y),
-      static_cast<float*>(h_last), st, S, din, N);
+      static_cast<float*>(h_last), static_cast<float*>(states), st, S, din,
+      N);
   return (int)cudaGetLastError();
 }
 
 // Two threads a channel where NP >= 8, one at NP = 4 (ops.scan_plan).
 template <typename T, typename TD, int NP>
 int launch_np(const void* u, const void* dt, const void* Bc, const void* Cc,
-              const void* A_log, void* y, void* h_last, const Strides& st,
-              int B, int S, int din, int N, cudaStream_t s) {
-  return launch_n<T, TD, NP, (NP >= 8 ? 2 : 1)>(u, dt, Bc, Cc, A_log, y,
-                                                h_last, st, B, S, din, N, s);
+              const void* A_log, void* y, void* h_last, void* states,
+              const Strides& st, int B, int S, int din, int N,
+              cudaStream_t s) {
+  return launch_n<T, TD, NP, (NP >= 8 ? 2 : 1)>(
+      u, dt, Bc, Cc, A_log, y, h_last, states, st, B, S, din, N, s);
 }
 
 template <typename T, typename TD>
 int launch(const void* u, const void* dt, const void* Bc, const void* Cc,
-           const void* A_log, void* y, void* h_last, const Strides& st, int B,
-           int S, int din, int N, cudaStream_t s) {
-  if (N <= 4)
-    return launch_np<T, TD, 4>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
-                               din, N, s);
-  if (N <= 8)
-    return launch_np<T, TD, 8>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
-                               din, N, s);
-  if (N <= 16)
-    return launch_np<T, TD, 16>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
-                                din, N, s);
-  if (N <= 32)
-    return launch_np<T, TD, 32>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
-                                din, N, s);
-  return launch_np<T, TD, kMaxState>(u, dt, Bc, Cc, A_log, y, h_last, st, B,
-                                     S, din, N, s);
+           const void* A_log, void* y, void* h_last, void* states,
+           const Strides& st, int B, int S, int din, int N, cudaStream_t s) {
+  auto np = N <= 4    ? launch_np<T, TD, 4>
+            : N <= 8  ? launch_np<T, TD, 8>
+            : N <= 16 ? launch_np<T, TD, 16>
+            : N <= 32 ? launch_np<T, TD, 32>
+                      : launch_np<T, TD, kMaxState>;
+  return np(u, dt, Bc, Cc, A_log, y, h_last, states, st, B, S, din, N, s);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  `strides` holds 8 element
 // strides: (batch, time) of u, dt, Bc and Cc in that order; y (B, S, din)
-// and h_last (B, din, N) are contiguous.  dtype is that of u, Bc, Cc and y,
-// dt_dtype that of dt: 0 for float32, 1 for bfloat16 (dt is float32 or u's
-// type).  Launches on `stream`, does not synchronise, and returns the
-// launch's cudaError_t (0 = cudaSuccess).
+// and h_last (B, din, N) are contiguous.  `states`, if not null, receives
+// the state before each chunk of kChunk steps, (B, ceil(S / kChunk), din,
+// N) fp32 contiguous, the first zeros: the backward starts from them.
+// dtype is that of u, Bc, Cc and y, dt_dtype that of dt: 0 for float32, 1
+// for bfloat16 (dt is float32 or u's type).  Launches on `stream`, does
+// not synchronise, and returns the launch's cudaError_t (0 = cudaSuccess).
 extern "C" int mamba_scan_launch(const void* u, const void* dt,
                                  const void* Bc, const void* Cc,
                                  const void* A_log, void* y, void* h_last,
-                                 const long long* strides, int B, int S,
-                                 int din, int N, int dtype, int dt_dtype,
-                                 void* stream) {
+                                 void* states, const long long* strides,
+                                 int B, int S, int din, int N, int dtype,
+                                 int dt_dtype, void* stream) {
   if (B <= 0 || S <= 0 || din <= 0 || B > 65535 || N <= 0 || N > kMaxState)
     return (int)cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7]};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && dt_dtype == 0)
-    return launch<float, float>(u, dt, Bc, Cc, A_log, y, h_last, st, B, S,
-                                din, N, s);
+    return launch<float, float>(u, dt, Bc, Cc, A_log, y, h_last, states, st,
+                                B, S, din, N, s);
   if (dtype == 1 && dt_dtype == 0)
-    return launch<__nv_bfloat16, float>(u, dt, Bc, Cc, A_log, y, h_last, st,
-                                        B, S, din, N, s);
+    return launch<__nv_bfloat16, float>(u, dt, Bc, Cc, A_log, y, h_last,
+                                        states, st, B, S, din, N, s);
   if (dtype == 1 && dt_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(u, dt, Bc, Cc, A_log, y,
-                                                h_last, st, B, S, din, N,
-                                                s);
+                                                h_last, states, st, B, S,
+                                                din, N, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,14 +9,20 @@ CUDA tensors it launches the Hopper kernel (``csrc/mamba_scan.cu``) on
 the current stream or raises; on CPU tensors, and only there, it runs
 the plain version (``ref.py``).
 
-A CUDA call raises ``RuntimeError`` when grad is enabled and an input
-requires grad (``kernels.refuse_grad``): the kernel has no backward yet
-(ROADMAP.md queue 1, item 19), and its output would carry no gradient.
+Training: when grad is enabled and an input requires grad, the call goes
+through ``MambaScan``, a ``torch.autograd.Function``.  Its forward
+launches the kernel with the state before every 64 steps (``states``)
+and saves the inputs and those states; its backward launches the
+hand-written ``csrc/mamba_scan_bwd.cu`` (``mamba_scan_bwd``) and sums its
+per-block partials.  On CPU tensors the Function runs the plain forward
+with ``chunk_states`` and the plain backward, ``mamba_scan_bwd_plain``.
+Otherwise the call is the plain launch, with no states and nothing saved.
 
-``launch_count`` counts kernel launches (a plain integer; reset it by
-assigning 0), so a run can show that its path went through the kernel.
-``scan_plan`` (plain Python) gives a launch's shape: threads a channel,
-blocks, shared memory and whether the grid is resident in one wave.
+``launch_count`` counts forward launches and ``bwd_launch_count``
+backward launches (plain integers; reset them by assigning 0), so a run
+can show that its path went through the kernels.  ``scan_plan`` and
+``bwd_plan`` (plain Python) give a launch's shape: threads a channel,
+blocks, shared memory and the blocks an SM holds at once.
 """
 
 from __future__ import annotations
@@ -27,17 +33,23 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
+from repro_torch.kernels.mamba_scan.ref import (
+    STATE_CHUNK, mamba_scan_bwd_plain, mamba_scan_plain,
+)
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
+BWD_SOURCE = SOURCE.with_name("mamba_scan_bwd.cu")
 _p, _i32 = ctypes.c_void_p, ctypes.c_int
-SYMBOLS = {"mamba_scan_launch": [_p] * 8 + [_i32] * 6 + [_p]}
+SYMBOLS = {"mamba_scan_launch": [_p] * 9 + [_i32] * 6 + [_p]}
+BWD_SYMBOLS = {"mamba_scan_bwd_launch": [_p] * 14 + [_i32] * 6 + [_p]}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE, MAX_BATCH = 64, 65535   # N; B is the grid's y extent
 # The kernel's block (csrc/mamba_scan.cu): threads, time steps staged a
 # pass; the card's SMs (H100 SXM) and shared memory (an SM's whole, and
 # the system's share of each block).
-THREADS, CHUNK = 128, 64
+THREADS, CHUNK = 128, STATE_CHUNK
+# csrc/mamba_scan_bwd.cu: steps recomputed into shared memory at once
+SUB = 8
 SMS, SMEM_SM, SMEM_RESERVED = 132, 233_472, 1_024
 
 
@@ -73,8 +85,39 @@ def scan_plan(B: int, S: int, din: int, N: int) -> ScanPlan:
                     blocks <= SMS * per_sm)
 
 
-# Number of kernel launches in this process.
+class BwdPlan(NamedTuple):
+    """A backward launch: threads a channel (``split``), channels a
+    block, the grid's blocks along the channels (``channel_blocks``, the
+    partials' third axis) and in all, each block's shared memory, and the
+    blocks an SM holds at once (shared memory and the register budget the
+    kernel is compiled to allow)."""
+    split: int
+    channels: int
+    channel_blocks: int
+    blocks: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def bwd_plan(B: int, S: int, din: int, N: int) -> BwdPlan:
+    """The backward launch of a scan of (B, S, din, N): the forward's
+    split up to 16 states, NP / 8 threads a channel above, so that a
+    thread holds at most 8 states (csrc/mamba_scan_bwd.cu)."""
+    NP = max(4, 1 << (N - 1).bit_length())
+    split = 1 if NP <= 4 else 2 if NP <= 16 else NP // 8
+    channels, nt = THREADS // split, NP // split
+    smem = 4 * (3 * SUB * channels + 2 * SUB * NP
+                + (CHUNK // SUB + SUB) * THREADS * nt
+                + SUB * (THREADS // 32) * 2 * NP)
+    cb = -(-din // channels)
+    # the register budget promises 3 (csrc/mamba_scan_bwd.cu's kMinBlocks)
+    per_sm = min(3, SMEM_SM // (smem + SMEM_RESERVED))
+    return BwdPlan(split, channels, cb, cb * B, smem, per_sm)
+
+
+# Number of kernel launches in this process: forward, backward.
 launch_count = 0
+bwd_launch_count = 0
 
 
 def _check(u, dt, Bc, Cc, A_log) -> None:
@@ -110,37 +153,146 @@ def _check(u, dt, Bc, Cc, A_log) -> None:
         raise ValueError("A_log is not contiguous")
 
 
-def mamba_scan(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
-               Cc: torch.Tensor, A_log: torch.Tensor):
-    """u/dt: (B, S, din); Bc/Cc: (B, S, N); A_log: (din, N) ->
-    (y (B, S, din) in u's type, h_last (B, din, N) fp32)."""
-    global launch_count
-    _check(u, dt, Bc, Cc, A_log)
-    if u.device.type == "cpu":
-        return mamba_scan_plain(u, dt, Bc, Cc, A_log)
-    if u.device.type != "cuda":
-        raise ValueError(f"mamba_scan runs on cuda or cpu, not {u.device}")
-    from repro_torch.kernels import build, refuse_grad
+def _strides(*ts):
+    return (ctypes.c_longlong * (2 * len(ts)))(
+        *(t.stride(i) for t in ts for i in range(2)))
 
-    refuse_grad("mamba_scan", (u, dt, Bc, Cc, A_log),
-                "its backward kernel, and with it falcon-mamba training on "
-                "the card, is ROADMAP.md queue 1, item 19")
+
+def _launch(u, dt, Bc, Cc, A_log, states: bool):
+    """One forward launch on CUDA tensors -> (y, h_last, the states
+    before each ``CHUNK`` steps (B, ceil(S / CHUNK), din, N) fp32 or
+    None)."""
+    global launch_count
+    from repro_torch.kernels import build
 
     lib = build.load("mamba_scan", SOURCE, SYMBOLS)
     B, S, din = u.shape
     N = A_log.shape[1]
     y = torch.empty((B, S, din), dtype=u.dtype, device=u.device)
     h_last = torch.empty((B, din, N), dtype=torch.float32, device=u.device)
-    strides = (ctypes.c_longlong * 8)(
-        *(t.stride(i) for t in (u, dt, Bc, Cc) for i in range(2)))
+    st = (torch.empty((B, -(-S // CHUNK), din, N), dtype=torch.float32,
+                      device=u.device) if states else None)
+    strides = _strides(u, dt, Bc, Cc)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.mamba_scan_launch(
             u.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
             A_log.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+            None if st is None else st.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), B, S, din, N,
             DTYPES[u.dtype], DTYPES[dt.dtype], stream)
     if err != 0:
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
     launch_count += 1
-    return y, h_last
+    return y, h_last, st
+
+
+def mamba_scan_fwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+                   Cc: torch.Tensor, A_log: torch.Tensor):
+    """``mamba_scan`` that also returns the states the backward starts
+    from: (y, h_last, states (B, ceil(S / CHUNK), din, N) fp32, h before
+    each ``CHUNK`` steps).  No autograd graph is recorded."""
+    _check(u, dt, Bc, Cc, A_log)
+    if _device(u) == "cpu":
+        return mamba_scan_plain(u, dt, Bc, Cc, A_log, chunk_states=True)
+    return _launch(u, dt, Bc, Cc, A_log, states=True)
+
+
+def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+                   Cc: torch.Tensor, A_log: torch.Tensor,
+                   states: torch.Tensor, dy: torch.Tensor,
+                   dh_last: torch.Tensor | None = None):
+    """The gradients (du, ddt, dB, dC, dA_log) of ``mamba_scan(u, dt, Bc,
+    Cc, A_log)`` given its ``states`` (``mamba_scan_fwd``), y's gradient
+    ``dy`` and h_last's ``dh_last`` (or None), each in its input's type
+    (dA_log fp32).  On CUDA tensors it launches ``csrc/mamba_scan_bwd.cu``
+    and sums its per-block partials, or raises; on CPU tensors it runs
+    ``mamba_scan_bwd_plain``."""
+    global bwd_launch_count
+    _check(u, dt, Bc, Cc, A_log)
+    B, S, din = u.shape
+    N = A_log.shape[1]
+    if states.shape != (B, -(-S // CHUNK), din, N) \
+            or states.dtype != torch.float32:
+        raise ValueError(f"states must be fp32 {(B, -(-S // CHUNK), din, N)}"
+                         f", not {states.dtype} {tuple(states.shape)}")
+    if dy.shape != u.shape or dy.dtype != u.dtype:
+        raise ValueError(f"dy must be u's {u.dtype} {tuple(u.shape)}, not "
+                         f"{dy.dtype} {tuple(dy.shape)}")
+    if dh_last is not None and (dh_last.shape != (B, din, N)
+                                or dh_last.dtype != torch.float32):
+        raise ValueError(f"dh_last must be fp32 {(B, din, N)}, not "
+                         f"{dh_last.dtype} {tuple(dh_last.shape)}")
+    if any(t.device != u.device for t in (states, dy, dh_last)
+           if t is not None):
+        raise ValueError("states, dy or dh_last is not on u's device")
+    if _device(u) == "cpu":
+        return mamba_scan_bwd_plain(u, dt, Bc, Cc, A_log, states, dy, dh_last)
+    from repro_torch.kernels import build
+
+    lib = build.load("mamba_scan_bwd", BWD_SOURCE, BWD_SYMBOLS)
+    states, dy = states.contiguous(), dy.contiguous()
+    if dh_last is not None:
+        dh_last = dh_last.contiguous()
+    cb = bwd_plan(B, S, din, N).channel_blocks
+    du, ddt = torch.empty_like(dy), torch.empty_like(dy, dtype=dt.dtype)
+    dBp, dCp = (torch.empty((B, S, cb, N), dtype=torch.float32,
+                            device=u.device) for _ in range(2))
+    dAp = torch.empty((B, din, N), dtype=torch.float32, device=u.device)
+    strides = _strides(u, dt, Bc, Cc)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.mamba_scan_bwd_launch(
+            u.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+            A_log.data_ptr(), states.data_ptr(), dy.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(), du.data_ptr(),
+            ddt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p), B, S, din, N,
+            DTYPES[u.dtype], DTYPES[dt.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_scan_bwd launch failed: CUDA error {err}")
+    bwd_launch_count += 1
+    return (du, ddt, dBp.sum(2).to(Bc.dtype), dCp.sum(2).to(Cc.dtype),
+            dAp.sum(0))
+
+
+class MambaScan(torch.autograd.Function):
+    """The scan with its gradient: on CUDA the forward kernel with its
+    states and the backward kernel, on the CPU their plain versions."""
+
+    @staticmethod
+    def forward(ctx, u, dt, Bc, Cc, A_log):
+        y, h_last, states = mamba_scan_fwd(u, dt, Bc, Cc, A_log)
+        ctx.save_for_backward(u, dt, Bc, Cc, A_log, states)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        u, dt, Bc, Cc, A_log, states = ctx.saved_tensors
+        if dy is None:   # only h_last reached the loss
+            dy = torch.zeros_like(u)
+        grads = mamba_scan_bwd(u, dt, Bc, Cc, A_log, states, dy, dh_last)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def _device(u: torch.Tensor) -> str:
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mamba_scan runs on cuda or cpu, not {u.device}")
+    return u.device.type
+
+
+def mamba_scan(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+               Cc: torch.Tensor, A_log: torch.Tensor):
+    """u/dt: (B, S, din); Bc/Cc: (B, S, N); A_log: (din, N) ->
+    (y (B, S, din) in u's type, h_last (B, din, N) fp32).  Differentiable
+    through ``MambaScan`` when grad is enabled and an input requires
+    grad."""
+    _check(u, dt, Bc, Cc, A_log)
+    ins = (u, dt, Bc, Cc, A_log)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return MambaScan.apply(*ins)
+    if _device(u) == "cpu":
+        return mamba_scan_plain(*ins)
+    return _launch(*ins, states=False)[:2]

@@ -4,7 +4,10 @@ The port of ``repro.models.mamba``, with the same signatures and param
 layouts.  Mamba1's selective scan is the ``mamba_scan`` kernel (its
 plain version on CPU tensors), which also returns the final state that
 decode starts from; the D skip, the gate and the projections stay torch
-glue, as in the reference.  Mamba2's chunked SSD form is plain torch
+glue, as in the reference.  Training differentiates ``mamba1_full``
+through the scan wrapper's autograd Function: its backward is the
+``mamba_scan_bwd`` kernel, where the reference lets XLA differentiate
+its chunked associative scan.  Mamba2's chunked SSD form is plain torch
 einsums, as the reference computes it outside any Pallas kernel.  Decode
 is the O(1) recurrence in plain torch for both.
 

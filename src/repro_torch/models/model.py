@@ -29,9 +29,10 @@ the training forward of the family (each block recomputed in the
 backward pass); ``batch`` holds ``tokens`` and ``labels`` (B, S) and,
 for the vlm, ``patch_embeds`` or, for the encdec, ``audio_embeds``
 (``launch.specs.make_batch``).  Its metrics: ``ce`` and ``aux`` for
-dense, vlm, moe and ssm, ``ce`` for hybrid and encdec.  On the card the
-ssm loss raises until the ``mamba_scan`` kernel has a backward (ROADMAP
-queue 1, item 19).
+dense, vlm, moe and ssm, ``ce`` for hybrid and encdec.  Every family
+trains on the card: attention's gradient is the ``flash_attention_bwd``
+kernel, the selective scan's the ``mamba_scan_bwd`` kernel (both behind
+their wrappers' autograd Functions).
 """
 
 from __future__ import annotations

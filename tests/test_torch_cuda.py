@@ -3,9 +3,9 @@
 against their plain PyTorch versions, on a card, and the moe and vlm
 serving paths and the contiguous-cache decode (dense, hybrid,
 encoder-decoder) on the card against the port on the CPU; and training:
-the flash backward kernel against its plain version, the grad refusals
-of ``paged_attention`` and ``mamba_scan``, and a train step on the card
-against the CPU.
+the flash and scan backward kernels against their plain versions, the
+grad refusal of ``paged_attention``, and a train step on the card against
+the CPU.
 Every test here is marked ``cuda`` and skips without one.
 
 This file imports nothing of JAX or ``repro``, so it runs on a machine
@@ -982,7 +982,9 @@ def test_flash_attention_backward_kernel_equals_plain(B, Sq, Skv, H, Hkv, hd,
 
 @pytest.mark.cuda
 def test_paged_attention_and_mamba_scan_refuse_grad_on_the_card(cuda_device):
-    from repro_torch.kernels.mamba_scan import ops as sops
+    """The paged decode kernel refuses grad on the card.  The scan, which
+    refused it until its backward kernel was written, is now held to its
+    plain backward by ``test_mamba_scan_backward_kernel_equals_plain``."""
     from repro_torch.kernels.paged_attention import ops as pops
     rng = np.random.default_rng(0)
     q = _randn(rng, (2, 4, 64), torch.float32, cuda_device)
@@ -995,15 +997,56 @@ def test_paged_attention_and_mamba_scan_refuse_grad_on_the_card(cuda_device):
         pops.paged_attention(q.requires_grad_(), kp, vp, bt, lens)
     with torch.no_grad():
         pops.paged_attention(q, kp, vp, bt, lens)
-    u = _randn(rng, (1, 8, 32), torch.float32, cuda_device)
-    dt = _randn(rng, (1, 8, 32), torch.float32, cuda_device).abs()
-    Bc = _randn(rng, (1, 8, 4), torch.float32, cuda_device)
-    Cc = _randn(rng, (1, 8, 4), torch.float32, cuda_device)
-    A = torch.zeros((32, 4), device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="item 19"):
-        sops.mamba_scan(u, dt, Bc, Cc, A)
-    with torch.no_grad():
-        sops.mamba_scan(u, dt, Bc, Cc, A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,din,N,dtype,with_dh", [
+    (2, 1000, 512, 16, torch.float32, False), (1, 1, 64, 16, torch.float32,
+                                               True),
+    (1, 65, 100, 4, torch.float32, False), (2, 130, 96, 64, torch.float32,
+                                            True),
+    (1, 64, 64, 1, torch.float32, False), (2, 300, 200, 16, torch.bfloat16,
+                                           True)])
+def test_mamba_scan_backward_kernel_equals_plain(B, S, din, N, dtype,
+                                                 with_dh, cuda_device):
+    """The scan's gradients on the card through ``MambaScan`` (the
+    forward kernel with its states, the backward kernel) against
+    ``mamba_scan_bwd_plain`` on fp32 copies of the same inputs and states:
+    each within 1e-4 of its largest magnitude, plus half a bf16 step of
+    each element for a bf16 output; two calls bit-equal."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_bwd_plain
+    rng = np.random.default_rng(S)
+    u = _randn(rng, (B, S, din), dtype, cuda_device)
+    dt = _randn(rng, (B, S, din), torch.float32, cuda_device).abs() * 0.1
+    bc = _randn(rng, (B, S, 8 + 2 * N), dtype, cuda_device)
+    Bc, Cc = bc[..., 8:8 + N], bc[..., 8 + N:]
+    A_log = _randn(rng, (din, N), torch.float32, cuda_device) * 0.5
+    dy = _randn(rng, (B, S, din), dtype, cuda_device)
+    dh = _randn(rng, (B, din, N), torch.float32, cuda_device)
+    ins = [t.clone().requires_grad_() for t in (u, dt, Bc, Cc, A_log)]
+    f0, b0 = sops.launch_count, sops.bwd_launch_count
+    y, h = sops.mamba_scan(*ins)
+    outs, grads = ((y, h), (dy, dh)) if with_dh else ((y,), (dy,))
+    got = torch.autograd.grad(outs, ins, grads)
+    torch.cuda.synchronize()
+    assert (sops.launch_count, sops.bwd_launch_count) == (f0 + 1, b0 + 1)
+    _, _, states = sops.mamba_scan_fwd(u, dt, Bc, Cc, A_log)
+    want = mamba_scan_bwd_plain(u.float(), dt, Bc.float(), Cc.float(), A_log,
+                                states, dy.float(), dh if with_dh else None)
+    for g, w, x in zip(got, want, (u, dt, Bc, Cc, A_log)):
+        assert g.dtype == x.dtype
+        lim = 1e-4 * float(w.abs().max()) + 1e-30
+        if g.dtype == torch.bfloat16:
+            m, e = torch.frexp(w)
+            lim = lim + torch.ldexp(torch.ones_like(m), e - 9) * (w != 0)
+        assert bool(((g.float() - w).abs() <= lim).all())
+    first = sops.mamba_scan_bwd(u, dt, Bc, Cc, A_log, states, dy,
+                                dh if with_dh else None)
+    second = sops.mamba_scan_bwd(u, dt, Bc, Cc, A_log, states, dy,
+                                 dh if with_dh else None)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(a, b) for a, b in zip(first, got))
 
 
 @pytest.mark.cuda
