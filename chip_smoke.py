@@ -77,9 +77,10 @@ started together):
 * training the ssm: ``falcon-mamba-7b`` at full width cut to 8 of its 64
   layers, trained the same way, the selective scan's gradient the
   hand-written ``mamba_scan_bwd`` kernel, which is held against its plain
-  version from the forward kernel's chunk states (with planted faults
-  that must fail the limit by 10x) and timed beside its bound; its bf16
-  gradients at 2 layers against its fp32 ones, reported.
+  version from the forward kernel's states every 16 steps (with planted
+  faults that must fail the limit by 10x) and timed beside its bound, its
+  launch one resident wave; its bf16 gradients at 2 layers against its
+  fp32 ones, within 5 %, where a planted scan fault must fail.
 
 Each phase prints one JSON line.  Then come the ``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -2800,17 +2801,42 @@ def tier_time(dev, named):
     return rec
 
 
+def previous_scan_ops(tree: str):
+    """``tree``'s ``mamba_scan/ops.py``, imported with ``tree``'s own
+    ``ref.py`` in the place of the present one (its states cadence and
+    plain versions), which is put back after."""
+    kdir = os.path.join(_kernel_dir(tree), "mamba_scan")
+    name = "repro_torch.kernels.mamba_scan.ref"
+    present = sys.modules.get(name)
+    sys.modules[name] = _load_module(os.path.join(kdir, "ref.py"),
+                                     "previous_scan_ref")
+    try:
+        return _load_module(os.path.join(kdir, "ops.py"), "previous_scan_ops")
+    finally:
+        if present is None:
+            del sys.modules[name]
+        else:
+            sys.modules[name] = present
+
+
 def scan_previous(dev, tree: str):
     """``tree``'s ``mamba_scan`` beside the present one at ``SCAN_MAIN``
     (bf16 u/B/C as the model hands them, fp32 dt): medians of 20, L2
     emptied by a 1 GiB read, in the order earlier, present, present,
     earlier; max and mean |err| of y against the plain version on fp32
-    copies of the inputs, and of h_last."""
+    copies of the inputs, and of h_last.  Then the backward the same way
+    at ``SCAN_TRAIN_SHAPE`` (bf16 u/B/C/dy, fp32 dt; medians of 10): each
+    tree runs its own forward with its states (the two trees' cadences may
+    differ) and then its own backward, which alone is timed (the kernel
+    and the wrapper's sums), and each tree's five gradients are held to
+    the plain backward on fp32 copies (max and mean |err|).  A tree whose
+    scan has no backward is timed on the forward alone."""
     from repro_torch.kernels.mamba_scan import ops as sops
-    from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
+    from repro_torch.kernels.mamba_scan.ref import (
+        mamba_scan_bwd_plain, mamba_scan_plain,
+    )
 
-    old = _load_module(os.path.join(_kernel_dir(tree), "mamba_scan",
-                                    "ops.py"), "previous_scan_ops")
+    old = previous_scan_ops(tree)
     flush = torch.empty(256 << 20, dtype=torch.float32, device=dev)
     ins = scan_inputs(dev, SCAN_MAIN, torch.bfloat16,
                       np.random.default_rng(3), R=SCAN_DT_RANK)
@@ -2830,6 +2856,34 @@ def scan_previous(dev, tree: str):
         dy = (y.float() - y0).abs()
         rec[k + "_err"] = dict(y_max=float(dy.max()), y_mean=float(dy.mean()),
                                h_last_max=float((h - h0).abs().max()))
+    del y0, h0, ins
+    if not hasattr(old, "mamba_scan_bwd"):
+        return rec
+    rng = np.random.default_rng(26)
+    ins = scan_inputs(dev, SCAN_TRAIN_SHAPE, torch.bfloat16, rng,
+                      R=SCAN_DT_RANK)
+    dy = torch.from_numpy(rng.normal(0, 1, ins[0].shape).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    trees = dict(previous=old, present=sops)
+    states = {k: m.mamba_scan_fwd(*ins)[2] for k, m in trees.items()}
+    bwd = {k: (lambda m=m, st=states[k]: m.mamba_scan_bwd(*ins, st, dy))
+           for k, m in trees.items()}
+    ms = [statistics.median(warm_ms(bwd[k], flush, 10)) for k in order]
+    want = mamba_scan_bwd_plain(*(t.float() for t in ins),
+                                states["present"], dy.float())
+    rec["bwd"] = dict(
+        shape=f"bf16 u/B/C/dy (B/C views of x_proj's output), fp32 dt, "
+              f"(B, S, din, N) = {SCAN_TRAIN_SHAPE}", order=order,
+        previous_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+        states_bytes={k: int(v.numel()) * 4 for k, v in states.items()},
+        plan=sops.bwd_plan(*SCAN_TRAIN_SHAPE)._asdict())
+    for k in trees:
+        got = bwd[k]()
+        rec["bwd"][k + "_err"] = {
+            name: dict(max=float((g.float() - w).abs().max()),
+                       mean=float((g.float() - w).abs().mean()))
+            for name, g, w in zip(SCAN_GRADS, got, want)}
+        del got
     return rec
 
 
@@ -3909,7 +3963,11 @@ SCAN_GRADS = ("du", "ddt", "dB", "dC", "dA_log")
 # its output; 0: views of one (B, S, 2N) tensor), dh_last given:
 # falcon-mamba's training shape, fp32 at a mid size, the edges (one step,
 # a ragged chunk and din off the 64-channel block, N = 64 and N = 1), dt in
-# u's type, a final-state gradient
+# u's type, a final-state gradient; then the edges of the states every 16
+# steps and the 4-step sub-chunks: S = 16 + 1 with din off the block (72),
+# a ragged last sub-chunk (S = 22: 16 + 4 + 2) at N 8 with bf16 rows of 200
+# bytes (din 100, which the wrapper pads for TMA), N 32 (4 threads a
+# channel) with S = 37
 SCAN_BWD_CASES = [(4, 4096, 8192, 16, "bfloat16", "float32", 256, False),
                   (2, 1000, 512, 16, "float32", "float32", 0, False),
                   (1, 1, 64, 16, "float32", "float32", 0, False),
@@ -3917,7 +3975,10 @@ SCAN_BWD_CASES = [(4, 4096, 8192, 16, "bfloat16", "float32", 256, False),
                   (2, 130, 96, 64, "float32", "float32", 0, False),
                   (1, 64, 64, 1, "float32", "float32", 0, False),
                   (2, 130, 96, 64, "bfloat16", "bfloat16", 0, False),
-                  (2, 300, 200, 16, "bfloat16", "float32", 0, True)]
+                  (2, 300, 200, 16, "bfloat16", "float32", 0, True),
+                  (2, 17, 72, 16, "bfloat16", "float32", 0, False),
+                  (1, 22, 100, 8, "bfloat16", "bfloat16", 0, True),
+                  (1, 37, 40, 32, "float32", "float32", 0, False)]
 SCAN_TRAIN_SHAPE = SCAN_BWD_CASES[0][:4]   # ssm_train_main's microbatch
 SCAN_FAULTS = ("lagged_state", "no_carry_decay", "dropped_block")
 FAULT_MARGIN = 10.0         # each planted fault's limit use at least this
@@ -4111,7 +4172,9 @@ def scan_bwd_time(dev):
     x_proj's output, fp32 dt), L2 emptied by a 1 GiB read before each
     call: the backward (the kernel and the wrapper's sums of its
     partials) beside its bound and the plain backward; the forward with
-    and without its states.  No PyTorch call computes the scan's
+    and without its states.  The launch's plan must be one resident wave,
+    its blocks an SM what the CUDA runtime fits on this card
+    (``ops.bwd_occupancy``).  No PyTorch call computes the scan's
     gradient, so there is no library yardstick."""
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.mamba_scan import ops as sops
@@ -4136,6 +4199,12 @@ def scan_bwd_time(dev):
         lambda: sops.mamba_scan(*ins), lambda: sops.mamba_scan_fwd(*ins),
         lambda: sops.mamba_scan_fwd(*ins), lambda: sops.mamba_scan(*ins))]
     ms = statistics.median(runs)
+    plan = sops.bwd_plan(*SCAN_TRAIN_SHAPE)
+    occupancy = sops.bwd_occupancy(SCAN_TRAIN_SHAPE[3], torch.bfloat16,
+                                   torch.float32)
+    require(plan.one_wave and occupancy == plan.blocks_per_sm,
+            f"scan backward: plan {plan}, the runtime fits {occupancy} "
+            f"blocks an SM")
     shape = (f"bf16 u/B/C/dy (B/C views of x_proj's output), fp32 dt, "
              f"(B, S, din, N) = {SCAN_TRAIN_SHAPE}")
     return dict(
@@ -4143,8 +4212,8 @@ def scan_bwd_time(dev):
         bwd=dict(shape=shape, ms_runs=runs, ms=ms, bytes=moved,
                  bytes_ms=bytes_ms, exps=exps, exps_ms=exps_ms,
                  bound_ms=bound, bound_by=by, roofline_share=bound / ms,
-                 plain_ms=plain, library_ms=None,
-                 plan=sops.bwd_plan(*SCAN_TRAIN_SHAPE)._asdict(),
+                 plain_ms=plain, library_ms=None, plan=plan._asdict(),
+                 runtime_blocks_per_sm=occupancy,
                  ptxas=kbuild.info("mamba_scan_bwd").get("ptxas")),
         fwd=dict(shape=shape, order="no states, states, states, no states",
                  ms=[fwd[0], fwd[3]], ms_with_states=[fwd[1], fwd[2]],
@@ -4152,50 +4221,90 @@ def scan_bwd_time(dev):
         l2_flush_bytes=flush.numel() * 4)
 
 
-def ssm_bf16_grad(dev):
-    """The bf16 training gradient of falcon-mamba against the fp32 one,
-    reported: its full width cut to ``BF16_GRAD_LAYERS`` layers, random
-    params made in bf16 and the same values in fp32, one batch of
-    ``BF16_GRAD_BATCH`` x 4,096 tokens, each gradient leaf's relative
-    error (``grad_rel_errors``); a scan forward and its remat recompute
-    and a backward a layer in each loss."""
-    from repro_torch.configs import get_config
+def ssm_grad_check(dev, c16, batch):
+    """falcon-mamba config ``c16`` (bf16) against the same random params in
+    fp32 on ``batch``, on ``dev``: (bf16 loss, fp32 loss, the scan's
+    [forward, backward] launches in the bf16 loss, each gradient leaf's
+    relative error (``grad_rel_errors``), the same with the scan's backward
+    replaced in one loss by the planted ``no_carry_decay`` fault
+    (``scan_bwd_fault``, through a ``MambaScan.backward`` swapped in and
+    restored in ``finally``))."""
     from repro_torch.kernels.mamba_scan import ops as sops
-    from repro_torch.launch.specs import make_batch
-    from repro_torch.models.config import ShapeCell
     from repro_torch.models.model import (
         build, params_from_numpy, params_to_numpy,
     )
     from repro_torch.training import step as step_lib
 
-    t0 = time.perf_counter()
-    c16 = dataclasses.replace(get_config(SSM_TRAIN_ARCH),
-                              n_layers=BF16_GRAD_LAYERS)
     c32 = dataclasses.replace(c16, dtype="float32", param_dtype="float32")
     a16, a32 = build(c16), build(c32)
     p16 = a16.init(torch.Generator(device=dev).manual_seed(0), dev)
     p32 = params_from_numpy(c32, params_to_numpy(p16), dev)
-    batch = make_batch(c16, ShapeCell("t", TRAIN_SEQ, BF16_GRAD_BATCH,
-                                      "train"), seed=6, device=dev)
     l32, _, g32 = step_lib.value_and_grad(a32, p32, batch)
     del p32
     s0, b0 = sops.launch_count, sops.bwd_launch_count
     l16, _, g16 = step_lib.value_and_grad(a16, p16, batch)
-    torch.cuda.synchronize()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
     launches = [sops.launch_count - s0, sops.bwd_launch_count - b0]
     rel = grad_rel_errors(g16, g32)
-    del g16, g32, p16, a16, a32, batch
+    del g16
+
+    def no_carry_decay(ctx, dy, dh_last):
+        u, dt, Bc, Cc, A_log, states = ctx.saved_tensors
+        ins = (u, dt, Bc, Cc, A_log)
+        grads = scan_bwd_fault(ins, states,
+                               torch.zeros_like(u) if dy is None else dy,
+                               dh_last, "no_carry_decay", 0)
+        return tuple(g.to(x.dtype) if need else None for g, x, need in
+                     zip(grads, ins, ctx.needs_input_grad))
+
+    backward = sops.MambaScan.__dict__["backward"]
+    sops.MambaScan.backward = staticmethod(no_carry_decay)
+    try:
+        _, _, gf = step_lib.value_and_grad(a16, p16, batch)
+    finally:
+        sops.MambaScan.backward = backward
+    fault = grad_rel_errors(gf, g32)
+    return float(l16), float(l32), launches, rel, fault
+
+
+def ssm_bf16_grad(dev):
+    """The bf16 training gradient of falcon-mamba against the fp32 one:
+    its full width cut to ``BF16_GRAD_LAYERS`` layers, random params made
+    in bf16 and the same values in fp32, one batch of ``BF16_GRAD_BATCH``
+    x 4,096 tokens (``ssm_grad_check``); a scan forward and its remat
+    recompute and a backward a layer in each loss.  Each leaf's relative
+    error must be within ``BF16_GRAD_TOL``, and the same check with the
+    scan's backward carrying g without its decay (a planted fault) must
+    exceed it, as ``train_bf16_grad`` holds olmo-1b."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models.config import ShapeCell
+
+    t0 = time.perf_counter()
+    c16 = dataclasses.replace(get_config(SSM_TRAIN_ARCH),
+                              n_layers=BF16_GRAD_LAYERS)
+    batch = make_batch(c16, ShapeCell("t", TRAIN_SEQ, BF16_GRAD_BATCH,
+                                      "train"), seed=6, device=dev)
+    l16, l32, launches, rel, fault = ssm_grad_check(dev, c16, batch)
+    del batch
     gc.collect()
     torch.cuda.empty_cache()
     require(launches == [2 * BF16_GRAD_LAYERS, BF16_GRAD_LAYERS],
             f"ssm_bf16_grad: scan launches {launches}, want a forward and "
             f"its remat recompute and a backward a layer")
+    require(max(rel.values()) <= BF16_GRAD_TOL, f"ssm_bf16_grad: bf16 "
+            f"gradients != fp32 beyond {BF16_GRAD_TOL} ({rel})")
+    require(max(fault.values()) > BF16_GRAD_TOL, f"ssm_bf16_grad: the "
+            f"check passes a scan backward without the carry's decay "
+            f"({fault})")
     return dict(
         phase="ssm_bf16_grad", arch=c16.name, n_layers=c16.n_layers,
         d_model=c16.d_model, d_inner=c16.d_inner, vocab=c16.vocab,
-        batch=BF16_GRAD_BATCH, seq_len=TRAIN_SEQ, gated=False,
-        loss_bf16=float(l16), loss_fp32=float(l32), launches=launches,
-        rel_err=rel, max_rel_err=max(rel.values()),
+        batch=BF16_GRAD_BATCH, seq_len=TRAIN_SEQ, gated=True,
+        tol=BF16_GRAD_TOL, loss_bf16=l16, loss_fp32=l32, launches=launches,
+        rel_err=rel, max_rel_err=max(rel.values()), fault_rel_err=fault,
+        fault_max_rel_err=max(fault.values()),
         seconds=time.perf_counter() - t0)
 
 
@@ -4456,12 +4565,16 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     if args.previous:
         kdir = _kernel_dir(args.previous)
+        prev_bwd = pathlib.Path(kdir, "mamba_scan", "csrc",
+                                "mamba_scan_bwd.cu")
         kbuild.build_many(
             [("cache_sim", build.SOURCE), ("mamba_scan", sops.SOURCE),
+             ("mamba_scan_bwd", sops.BWD_SOURCE),
              ("s3fifo_sim", s3build.SOURCE), ("simple_sim", smbuild.SOURCE)]
             + [(k, pathlib.Path(kdir, k, "csrc", f"{k}.cu")) for k in (
                 "cache_sim", "mamba_scan", "flash_attention",
-                "paged_attention", "s3fifo_sim", "simple_sim")])
+                "paged_attention", "s3fifo_sim", "simple_sim")]
+            + ([("mamba_scan_bwd", prev_bwd)] if prev_bwd.exists() else []))
         emit(attn_previous(dev, args.previous))
         emit(scan_previous(dev, args.previous))
         named = {name: tr for name, tr in suite_traces(traces)
@@ -4931,7 +5044,7 @@ def main() -> int:
              ms=sbt["bwd"]["ms"], plain_ms=sbt["bwd"]["plain_ms"],
              bound_ms=sbt["bwd"]["bound_ms"], bound_by=sbt["bwd"]["bound_by"],
              library_ms=None, ms_shape=sbt["bwd"]["shape"],
-             plain_shape=sbt["bwd"]["shape"],
+             plain_shape=sbt["bwd"]["shape"], plan=sbt["bwd"]["plan"],
              ptxas=kbuild.info("mamba_scan_bwd").get("ptxas")),
         policy_kernel_row("s3fifo_sim", cmp_times, cmp, evp, ("s3fifo",),
                           "w01-skewed/meta", all_traces,

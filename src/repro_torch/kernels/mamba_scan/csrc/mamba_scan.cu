@@ -11,10 +11,11 @@
 // it, this one also writes the final state h_last (B, din, N) in fp32: the
 // model's decode starts from it, and writing it here spares a second pass.
 // For training it also writes, when given a `states` buffer, the state
-// before each chunk of kChunk steps: the backward (mamba_scan_bwd.cu)
-// recomputes each chunk's states from there with the same scan_step
-// (scan.cuh), so its states equal these bit for bit.  Without the buffer
-// (inference) the kernel does what it did without one.
+// before every kStateEvery steps (scan.cuh: 16, a quarter of the staged
+// chunk): the backward (mamba_scan_bwd.cu) recomputes the steps between
+// two of them with the same scan_step (scan.cuh), so its states equal
+// these bit for bit.  Without the buffer (inference) the kernel has no
+// trace of that output: it runs a chunk's steps as one loop.
 // There is no padding: the time loop stops at S, which leaves the same state
 // as the reference's ragged tail masked with dt = 0.
 //
@@ -60,6 +61,7 @@ using scan::from_f;
 using scan::kChunk;
 using scan::kLog2e;
 using scan::kMaxState;
+using scan::kStateEvery;
 using scan::to_f;
 
 constexpr int kThreads = 128;   // threads per block
@@ -81,9 +83,9 @@ size_t smem_bytes(int NP, int split) {
 // (falcon-mamba's 16), compiled without that test in the step loop.
 // kSplit: threads a channel (1 or 2); each of kSplit neighbouring threads
 // runs NP / kSplit of the channel's states, and __shfl_xor_sync adds their
-// parts of y.  kStates: the state before each chunk is written (training);
-// the inference kernel, without it, has no trace of that output.  The
-// second argument of __launch_bounds__ is the blocks an SM is promised by
+// parts of y.  kStates: the state before every kStateEvery steps is
+// written (training); the inference kernel, without it, has no trace of
+// that output.  The second argument of __launch_bounds__ is the blocks an SM is promised by
 // the register budget (ops.scan_plan mirrors it).
 template <int NT>
 constexpr int min_blocks() { return NT <= 16 ? 4 : 2; }
@@ -131,14 +133,6 @@ mamba_scan_kernel(
 
   for (int t0 = 0; t0 < S; t0 += kChunk) {
     const int steps = min(kChunk, S - t0);
-    // The state before the chunk, for the backward (training only).
-    if (kStates && live) {
-      float* sp = states + ((b * ((S + kChunk - 1) / kChunk) + t0 / kChunk) *
-                                din + d) * (long long)N + n0;
-#pragma unroll
-      for (int i = 0; i < NT; ++i)
-        if (n0 + i < N) sp[i] = h[i];
-    }
     // Stage u and dt of the block's channels: consecutive threads take
     // consecutive channels of one step, so the loads coalesce.  Loads go
     // to registers kBatch at a time, all issued before the first store, so
@@ -189,34 +183,48 @@ mamba_scan_kernel(
     __syncthreads();
     // Every thread runs the recurrence (a thread past din on zeros), so
     // both threads of a pair reach the shuffle; only live ones store.
-    for (int t = 0; t < steps; ++t) {
-      const float dtv = sdt[t * kCh + cl];
-      const float dtu = dtv * su[t * kCh + cl];
-      // B and C of this thread's states, four a load (16-byte shared loads)
-      const float4* bt = reinterpret_cast<const float4*>(sb + t * NP + n0);
-      const float4* ct = reinterpret_cast<const float4*>(sc + t * NP + n0);
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    // With states, the steps run in segments of kStateEvery, each after
+    // the state before it is written; without, the chunk is one segment.
+    constexpr int kSeg = kStates ? kStateEvery : kChunk;
+    for (int t1 = 0; t1 < steps; t1 += kSeg) {
+      if (kStates && live) {
+        float* sp = states + ((b * ((S + kStateEvery - 1) / kStateEvery) +
+                               (t0 + t1) / kStateEvery) * din + d) *
+                                 (long long)N + n0;
 #pragma unroll
-      for (int q = 0; q < NT / 4; ++q) {
-        const float4 b4 = bt[q], c4 = ct[q];
-        const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
-        const float cq[4] = {c4.x, c4.y, c4.z, c4.w};
+        for (int i = 0; i < NT; ++i)
+          if (n0 + i < N) sp[i] = h[i];
+      }
+      const int t2 = min(steps, t1 + kSeg);
+      for (int t = t1; t < t2; ++t) {
+        const float dtv = sdt[t * kCh + cl];
+        const float dtu = dtv * su[t * kCh + cl];
+        // B and C of this thread's states, four a load (16-byte shared loads)
+        const float4* bt = reinterpret_cast<const float4*>(sb + t * NP + n0);
+        const float4* ct = reinterpret_cast<const float4*>(sc + t * NP + n0);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int i = 4 * q + k;
-          if (kFull || n0 + i < N) {
-            h[i] = scan::scan_step(exp2_approx(dtv * A2[i]), h[i], dtu,
-                                   bq[k]);
-            acc[k] += h[i] * cq[k];
+        for (int q = 0; q < NT / 4; ++q) {
+          const float4 b4 = bt[q], c4 = ct[q];
+          const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
+          const float cq[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int i = 4 * q + k;
+            if (kFull || n0 + i < N) {
+              h[i] = scan::scan_step(exp2_approx(dtv * A2[i]), h[i], dtu,
+                                     bq[k]);
+              acc[k] += h[i] * cq[k];
+            }
           }
         }
-      }
-      float yv = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        float yv = (acc[0] + acc[1]) + (acc[2] + acc[3]);
 #pragma unroll
-      for (int m = 1; m < kSplit; m *= 2)
-        yv += __shfl_xor_sync(0xffffffffu, yv, m);
-      if (live && n0 == 0) *yp = from_f<T>(yv);
-      yp += din;
+        for (int m = 1; m < kSplit; m *= 2)
+          yv += __shfl_xor_sync(0xffffffffu, yv, m);
+        if (live && n0 == 0) *yp = from_f<T>(yv);
+        yp += din;
+      }
     }
     __syncthreads();  // the next chunk overwrites the staged rows
   }
@@ -280,8 +288,8 @@ int launch(const void* u, const void* dt, const void* Bc, const void* Cc,
 // Plain C entry point (bound with ctypes).  `strides` holds 8 element
 // strides: (batch, time) of u, dt, Bc and Cc in that order; y (B, S, din)
 // and h_last (B, din, N) are contiguous.  `states`, if not null, receives
-// the state before each chunk of kChunk steps, (B, ceil(S / kChunk), din,
-// N) fp32 contiguous, the first zeros: the backward starts from them.
+// the state before every kStateEvery steps, (B, ceil(S / kStateEvery),
+// din, N) fp32 contiguous, the first zeros: the backward starts from them.
 // dtype is that of u, Bc, Cc and y, dt_dtype that of dt: 0 for float32, 1
 // for bfloat16 (dt is float32 or u's type).  Launches on `stream`, does
 // not synchronise, and returns the launch's cudaError_t (0 = cudaSuccess).

@@ -9,7 +9,11 @@
 
 namespace scan {
 
-constexpr int kChunk = 64;      // time steps a saved state covers (ref.py)
+constexpr int kChunk = 64;      // time steps the forward stages at once
+// Time steps between the states the forward saves for the backward
+// (ref.py's STATE_CHUNK, ops.py mirrors it).
+constexpr int kStateEvery = 16;
+static_assert(kChunk % kStateEvery == 0, "kStateEvery must divide kChunk");
 constexpr int kMaxState = 64;
 constexpr float kLog2e = 1.4426950408889634f;
 

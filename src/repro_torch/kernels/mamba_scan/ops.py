@@ -11,18 +11,20 @@ the plain version (``ref.py``).
 
 Training: when grad is enabled and an input requires grad, the call goes
 through ``MambaScan``, a ``torch.autograd.Function``.  Its forward
-launches the kernel with the state before every 64 steps (``states``)
-and saves the inputs and those states; its backward launches the
-hand-written ``csrc/mamba_scan_bwd.cu`` (``mamba_scan_bwd``) and sums its
-per-block partials.  On CPU tensors the Function runs the plain forward
-with ``chunk_states`` and the plain backward, ``mamba_scan_bwd_plain``.
+launches the kernel with the state before every ``STATE_CHUNK`` (16)
+steps (``states``) and saves the inputs and those states; its backward
+launches the hand-written ``csrc/mamba_scan_bwd.cu`` (``mamba_scan_bwd``)
+and sums its per-block partials.  On CPU tensors the Function runs the
+plain forward with ``chunk_states`` and the plain backward,
+``mamba_scan_bwd_plain``.
 Otherwise the call is the plain launch, with no states and nothing saved.
 
 ``launch_count`` counts forward launches and ``bwd_launch_count``
 backward launches (plain integers; reset them by assigning 0), so a run
 can show that its path went through the kernels.  ``scan_plan`` and
 ``bwd_plan`` (plain Python) give a launch's shape: threads a channel,
-blocks, shared memory and the blocks an SM holds at once.
+blocks, shared memory, the blocks an SM holds at once and whether the
+grid is resident in one wave.
 """
 
 from __future__ import annotations
@@ -41,15 +43,19 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 BWD_SOURCE = SOURCE.with_name("mamba_scan_bwd.cu")
 _p, _i32 = ctypes.c_void_p, ctypes.c_int
 SYMBOLS = {"mamba_scan_launch": [_p] * 9 + [_i32] * 6 + [_p]}
-BWD_SYMBOLS = {"mamba_scan_bwd_launch": [_p] * 14 + [_i32] * 6 + [_p]}
+BWD_SYMBOLS = {"mamba_scan_bwd_launch": [_p] * 14 + [_i32] * 6 + [_p],
+               "mamba_scan_bwd_occupancy": [_i32] * 3 + [_p]}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE, MAX_BATCH = 64, 65535   # N; B is the grid's y extent
 # The kernel's block (csrc/mamba_scan.cu): threads, time steps staged a
 # pass; the card's SMs (H100 SXM) and shared memory (an SM's whole, and
-# the system's share of each block).
-THREADS, CHUNK = 128, STATE_CHUNK
+# the system's share of each block).  The states the forward saves for
+# the backward come every STATE_CHUNK steps (csrc/scan.cuh's kStateEvery).
+THREADS, CHUNK = 128, 64
 # csrc/mamba_scan_bwd.cu: steps recomputed into shared memory at once
-SUB = 8
+# (kSub), floats a row of its h and g buffers (kPitch), and the blocks an
+# SM its register budget promises (kMinBlocks: 128 registers a thread)
+SUB, PITCH, BWD_MIN_BLOCKS = 4, THREADS + 4, 4
 SMS, SMEM_SM, SMEM_RESERVED = 132, 233_472, 1_024
 
 
@@ -88,31 +94,55 @@ def scan_plan(B: int, S: int, din: int, N: int) -> ScanPlan:
 class BwdPlan(NamedTuple):
     """A backward launch: threads a channel (``split``), channels a
     block, the grid's blocks along the channels (``channel_blocks``, the
-    partials' third axis) and in all, each block's shared memory, and the
+    partials' third axis) and in all, each block's shared memory, the
     blocks an SM holds at once (shared memory and the register budget the
-    kernel is compiled to allow)."""
+    kernel is compiled to allow), and whether every block is resident at
+    once on the card's SMs."""
     split: int
     channels: int
     channel_blocks: int
     blocks: int
     smem_bytes: int
     blocks_per_sm: int
+    one_wave: bool
 
 
 def bwd_plan(B: int, S: int, din: int, N: int) -> BwdPlan:
     """The backward launch of a scan of (B, S, din, N): the forward's
     split up to 16 states, NP / 8 threads a channel above, so that a
-    thread holds at most 8 states (csrc/mamba_scan_bwd.cu)."""
+    thread holds at most 8 states; shared memory as
+    csrc/mamba_scan_bwd.cu's ``smem_bytes``: a ring of two stages as copied
+    (u, dt and dy of ``SUB`` steps sized for fp32, the B and C rows at
+    least 16 bytes wide), dy and dt u in fp32, the first pass's states
+    before each sub-chunk but the first, the h and g buffers (``SUB``
+    steps x the thread's states x ``PITCH``) and an mbarrier."""
     NP = max(4, 1 << (N - 1).bit_length())
     split = 1 if NP <= 4 else 2 if NP <= 16 else NP // 8
     channels, nt = THREADS // split, NP // split
-    smem = 4 * (3 * SUB * channels + 2 * SUB * NP
-                + (CHUNK // SUB + SUB) * THREADS * nt
-                + SUB * (THREADS // 32) * 2 * NP)
+    smem = (8 * (3 * SUB * channels + 2 * SUB * max(NP, 8))
+            + 4 * (2 * SUB * channels
+                   + (STATE_CHUNK // SUB - 1) * nt * THREADS
+                   + 2 * SUB * nt * PITCH) + 16)
     cb = -(-din // channels)
-    # the register budget promises 3 (csrc/mamba_scan_bwd.cu's kMinBlocks)
-    per_sm = min(3, SMEM_SM // (smem + SMEM_RESERVED))
-    return BwdPlan(split, channels, cb, cb * B, smem, per_sm)
+    per_sm = min(BWD_MIN_BLOCKS, SMEM_SM // (smem + SMEM_RESERVED))
+    return BwdPlan(split, channels, cb, cb * B, smem, per_sm,
+                   cb * B <= SMS * per_sm)
+
+
+def bwd_occupancy(N: int, dtype: torch.dtype, dt_dtype: torch.dtype) -> int:
+    """The backward kernel's blocks an SM for N states, as the CUDA runtime
+    counts them on the current card (``bwd_plan``'s ``blocks_per_sm`` is
+    the same promise, worked out on the host)."""
+    from repro_torch.kernels import build
+
+    lib = build.load("mamba_scan_bwd", BWD_SOURCE, BWD_SYMBOLS)
+    out = ctypes.c_int(0)
+    err = lib.mamba_scan_bwd_occupancy(N, DTYPES[dtype], DTYPES[dt_dtype],
+                                       ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"mamba_scan_bwd occupancy failed: CUDA error "
+                           f"{err}")
+    return out.value
 
 
 # Number of kernel launches in this process: forward, backward.
@@ -158,10 +188,35 @@ def _strides(*ts):
         *(t.stride(i) for t in ts for i in range(2)))
 
 
+def tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (its last axis contiguous) as the backward kernel's TMA copies
+    read it: ``t`` itself where its start and its other strides are
+    multiples of 16 bytes, else a copy into a zeroed buffer whose rows are
+    padded to a multiple of 16 bytes, as a view of the first columns (an
+    odd din or N, a B or C view at an odd offset)."""
+    es = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * es % 16 == 0
+                                      for s in t.stride()[:-1]):
+        return t
+    x = t.shape[-1]
+    out = torch.zeros((*t.shape[:-1], -(-x * es // 16) * 16 // es),
+                      dtype=t.dtype, device=t.device)
+    out[..., :x] = t
+    return out[..., :x]
+
+
+def bwd_strides(u, dt, Bc, Cc, dy, states):
+    """The backward launch's 11 element strides: (batch, time) of u, dt,
+    Bc, Cc and dy, and the states' between channels."""
+    return (ctypes.c_longlong * 11)(
+        *(t.stride(i) for t in (u, dt, Bc, Cc, dy) for i in range(2)),
+        states.stride(2))
+
+
 def _launch(u, dt, Bc, Cc, A_log, states: bool):
     """One forward launch on CUDA tensors -> (y, h_last, the states
-    before each ``CHUNK`` steps (B, ceil(S / CHUNK), din, N) fp32 or
-    None)."""
+    before every ``STATE_CHUNK`` steps (B, ceil(S / STATE_CHUNK), din, N)
+    fp32 or None)."""
     global launch_count
     from repro_torch.kernels import build
 
@@ -170,7 +225,7 @@ def _launch(u, dt, Bc, Cc, A_log, states: bool):
     N = A_log.shape[1]
     y = torch.empty((B, S, din), dtype=u.dtype, device=u.device)
     h_last = torch.empty((B, din, N), dtype=torch.float32, device=u.device)
-    st = (torch.empty((B, -(-S // CHUNK), din, N), dtype=torch.float32,
+    st = (torch.empty((B, -(-S // STATE_CHUNK), din, N), dtype=torch.float32,
                       device=u.device) if states else None)
     strides = _strides(u, dt, Bc, Cc)
     with torch.cuda.device(u.device):
@@ -190,8 +245,9 @@ def _launch(u, dt, Bc, Cc, A_log, states: bool):
 def mamba_scan_fwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
                    Cc: torch.Tensor, A_log: torch.Tensor):
     """``mamba_scan`` that also returns the states the backward starts
-    from: (y, h_last, states (B, ceil(S / CHUNK), din, N) fp32, h before
-    each ``CHUNK`` steps).  No autograd graph is recorded."""
+    from: (y, h_last, states (B, ceil(S / STATE_CHUNK), din, N) fp32, h
+    before every ``STATE_CHUNK`` steps).  No autograd graph is
+    recorded."""
     _check(u, dt, Bc, Cc, A_log)
     if _device(u) == "cpu":
         return mamba_scan_plain(u, dt, Bc, Cc, A_log, chunk_states=True)
@@ -212,10 +268,10 @@ def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     _check(u, dt, Bc, Cc, A_log)
     B, S, din = u.shape
     N = A_log.shape[1]
-    if states.shape != (B, -(-S // CHUNK), din, N) \
-            or states.dtype != torch.float32:
-        raise ValueError(f"states must be fp32 {(B, -(-S // CHUNK), din, N)}"
-                         f", not {states.dtype} {tuple(states.shape)}")
+    nst = -(-S // STATE_CHUNK)
+    if states.shape != (B, nst, din, N) or states.dtype != torch.float32:
+        raise ValueError(f"states must be fp32 {(B, nst, din, N)}, not "
+                         f"{states.dtype} {tuple(states.shape)}")
     if dy.shape != u.shape or dy.dtype != u.dtype:
         raise ValueError(f"dy must be u's {u.dtype} {tuple(u.shape)}, not "
                          f"{dy.dtype} {tuple(dy.shape)}")
@@ -231,15 +287,17 @@ def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     from repro_torch.kernels import build
 
     lib = build.load("mamba_scan_bwd", BWD_SOURCE, BWD_SYMBOLS)
-    states, dy = states.contiguous(), dy.contiguous()
     if dh_last is not None:
         dh_last = dh_last.contiguous()
     cb = bwd_plan(B, S, din, N).channel_blocks
-    du, ddt = torch.empty_like(dy), torch.empty_like(dy, dtype=dt.dtype)
+    du = torch.empty((B, S, din), dtype=u.dtype, device=u.device)
+    ddt = torch.empty((B, S, din), dtype=dt.dtype, device=u.device)
     dBp, dCp = (torch.empty((B, S, cb, N), dtype=torch.float32,
                             device=u.device) for _ in range(2))
     dAp = torch.empty((B, din, N), dtype=torch.float32, device=u.device)
-    strides = _strides(u, dt, Bc, Cc)
+    u, dt, Bc, Cc, dy, states = (tma_ready(t) for t in (
+        u, dt, Bc, Cc, dy.contiguous(), states.contiguous()))
+    strides = bwd_strides(u, dt, Bc, Cc, dy, states)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.mamba_scan_bwd_launch(

@@ -17,8 +17,9 @@ from __future__ import annotations
 
 import torch
 
-# Steps between the saved states: csrc/mamba_scan.cu's kChunk.
-STATE_CHUNK = 64
+# Steps between the saved states: csrc/scan.cuh's kStateEvery (a quarter
+# of the forward kernel's staged chunk of 64 steps).
+STATE_CHUNK = 16
 
 
 def mamba_scan_plain(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,

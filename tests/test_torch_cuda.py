@@ -1006,7 +1006,12 @@ def test_paged_attention_and_mamba_scan_refuse_grad_on_the_card(cuda_device):
     (1, 65, 100, 4, torch.float32, False), (2, 130, 96, 64, torch.float32,
                                             True),
     (1, 64, 64, 1, torch.float32, False), (2, 300, 200, 16, torch.bfloat16,
-                                           True)])
+                                           True),
+    # the states every 16 steps and the 4-step sub-chunks: S = 16 + 1 with
+    # din off the 64-channel block; a ragged last sub-chunk with rows TMA
+    # cannot read (din 100 in bf16: the wrapper pads them), N 8
+    (2, 17, 72, 16, torch.bfloat16, False), (1, 22, 100, 8, torch.bfloat16,
+                                             True)])
 def test_mamba_scan_backward_kernel_equals_plain(B, S, din, N, dtype,
                                                  with_dh, cuda_device):
     """The scan's gradients on the card through ``MambaScan`` (the

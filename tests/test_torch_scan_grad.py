@@ -12,11 +12,14 @@ largest magnitude (fp32; the two differ by the order of their sums);
 bf16 outputs through ``MambaScan`` at ``chip_smoke.py``'s limit
 (``scan_grad_limit_use``: 1e-4 of the largest magnitude plus half a bf16
 step of each element).  ``chip_smoke.py``'s check of the kernel, run
-here on the plain version, fails each planted fault by 10x or more.
+here on the plain version, fails each planted fault by 10x or more, and
+its bf16 gradient gate (``ssm_grad_check``) holds a reduced bf16
+falcon-mamba within 5 % of fp32 and fails a planted scan fault.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import pathlib
 
@@ -143,21 +146,36 @@ def test_mamba_scan_grad_through_the_function_bf16(dt_bf16):
     assert max(use.values()) <= 1.0, use
 
 
-def test_chunk_states_are_the_recurrence_every_64_steps():
+def _prefix_state(ins, t):
+    """The plain recurrence's final state after the first ``t`` steps."""
+    u, dt, Bc, Cc, Al = ins
+    return mamba_scan_plain(u[:, :t], dt[:, :t], Bc[:, :t], Cc[:, :t], Al)[1]
+
+
+def test_chunk_states_are_the_recurrence_every_state_chunk_steps():
     """``chunk_states``' chunk c is the plain recurrence's state after
-    64 c steps: the final state of the scan of that prefix (zeros at 0)."""
-    u, dt, Bc, Cc, Al, _, _ = (torch.from_numpy(a)
-                               for a in _inputs(2, 200, 16, 4, seed=3))
-    y, h, states = mamba_scan_plain(u, dt, Bc, Cc, Al, chunk_states=True)
-    assert states.shape == (2, 4, 16, 4) and states.dtype == torch.float32
+    ``STATE_CHUNK`` (16) c steps: the final state of the scan of that
+    prefix (zeros at 0)."""
+    assert STATE_CHUNK == 16 == sops.STATE_CHUNK
+    ins = [torch.from_numpy(a) for a in _inputs(2, 200, 16, 4, seed=3)[:5]]
+    y, h, states = mamba_scan_plain(*ins, chunk_states=True)
+    assert states.shape == (2, 13, 16, 4) and states.dtype == torch.float32
     assert not states[:, 0].any()
-    for c in range(1, 4):
-        t = c * STATE_CHUNK
-        _, h_t = mamba_scan_plain(u[:, :t], dt[:, :t], Bc[:, :t], Cc[:, :t],
-                                  Al)
-        assert torch.equal(states[:, c], h_t)
-    y2, h2 = mamba_scan_plain(u, dt, Bc, Cc, Al)
+    for c in range(1, 13):
+        assert torch.equal(states[:, c], _prefix_state(ins, c * STATE_CHUNK))
+    y2, h2 = mamba_scan_plain(*ins)
     assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_chunk_states_are_the_recurrence_every_64_steps():
+    """At the forward kernel's staged chunks of 64 steps (every fourth
+    saved state) ``chunk_states`` holds the recurrence's state after 64 c
+    steps, a ragged last chunk included."""
+    ins = [torch.from_numpy(a) for a in _inputs(1, 150, 8, 16, seed=4)[:5]]
+    _, _, states = mamba_scan_plain(*ins, chunk_states=True)
+    assert states.shape[1] == 10 and 64 // STATE_CHUNK == 4
+    for c in (1, 2):
+        assert torch.equal(states[:, 4 * c], _prefix_state(ins, 64 * c))
 
 
 def test_no_grad_call_saves_nothing():
@@ -178,7 +196,10 @@ CHECK_CASES = [(2, 130, 96, 16, "bfloat16", "float32", 8, False),
                (2, 70, 40, 64, "float32", "float32", 0, False),
                (1, 64, 64, 1, "float32", "float32", 0, False),
                (2, 70, 96, 8, "bfloat16", "bfloat16", 0, False),
-               (2, 100, 70, 16, "bfloat16", "float32", 0, True)]
+               (2, 100, 70, 16, "bfloat16", "float32", 0, True),
+               (2, 17, 72, 16, "bfloat16", "float32", 0, False),
+               (1, 22, 100, 8, "bfloat16", "bfloat16", 0, True),
+               (1, 37, 40, 32, "float32", "float32", 0, False)]
 
 
 @pytest.mark.parametrize("case", CHECK_CASES)
@@ -214,12 +235,18 @@ def test_grad_limit_allows_half_a_bf16_step():
 
 def test_bwd_plan_at_falcon_mamba_training_shape():
     """(4, 4096, 8192, 16): the forward's split, 64 channels a block, 128
-    channel blocks (the partials' third axis), 512 blocks of 75 KB, three
-    an SM."""
+    channel blocks (the partials' third axis), 512 blocks of 54 KB (a ring
+    of two 4-step stages as copied, dy and dt u, 3 ckpt slots, the h and g
+    buffers, the mbarrier), four an SM: one resident wave on 132 SMs."""
     p = sops.bwd_plan(4, 4096, 8192, 16)
     assert (p.split, p.channels, p.channel_blocks, p.blocks) == (2, 64, 128,
                                                                  512)
-    assert p.smem_bytes == 76_800 and p.blocks_per_sm == 3
+    assert (sops.SUB, sops.STATE_CHUNK, sops.PITCH) == (4, 16, 132)
+    assert p.smem_bytes == (8 * (3 * 4 * 64 + 2 * 4 * 16)
+                            + 4 * (2 * 4 * 64 + 3 * 8 * 128 + 2 * 4 * 8 * 132)
+                            + 16) == 55_312
+    assert p.blocks_per_sm == 4 and p.one_wave
+    assert p.blocks <= sops.SMS * p.blocks_per_sm
     assert p.blocks_per_sm * (p.smem_bytes + sops.SMEM_RESERVED) \
         <= sops.SMEM_SM
 
@@ -228,10 +255,46 @@ def test_bwd_plan_at_falcon_mamba_training_shape():
                                               (5, 2, 64), (16, 2, 64),
                                               (17, 4, 32), (64, 8, 16)])
 def test_bwd_plan_keeps_8_states_a_thread_at_most(N, split, channels):
+    """Every state count keeps 4 blocks an SM (the register budget's
+    promise), its shared memory within an SM's share."""
     p = sops.bwd_plan(2, 100, 300, N)
     assert (p.split, p.channels) == (split, channels)
     assert p.channel_blocks == -(-300 // channels)
-    assert p.smem_bytes <= 227 * 1024 and p.blocks_per_sm >= 2
+    assert p.blocks_per_sm == sops.BWD_MIN_BLOCKS == 4 and p.one_wave
+    assert 4 * (p.smem_bytes + sops.SMEM_RESERVED) <= sops.SMEM_SM
+
+
+@pytest.mark.parametrize("B,din,one_wave", [(1, 8192, True),
+                                             (4, 8192, True),
+                                             (5, 8192, False),
+                                             (4, 8448, True),
+                                             (4, 8449, False)])
+def test_bwd_plan_one_wave_up_to_four_blocks_an_sm(B, din, one_wave):
+    """``one_wave`` holds while the grid fits 4 blocks on each of the 132
+    SMs (528): falcon-mamba's 128 channel blocks a sequence fit 4
+    sequences, not 5; 132 channel blocks fit 4, 133 (the last partial)
+    do not."""
+    p = sops.bwd_plan(B, 4096, din, 16)
+    assert p.blocks == B * -(-din // 64)
+    assert p.one_wave == one_wave == (p.blocks <= 528)
+
+
+@pytest.mark.parametrize("shape,cut,ok", [
+    ((2, 5, 16), None, True),       # 32-byte rows, aligned
+    ((2, 5, 7), None, False),       # 28-byte rows
+    ((2, 5, 40), (8, 24), True),    # an aligned view at 32 bytes
+    ((2, 5, 40), (1, 17), False)])  # a view at 4 bytes
+def test_tma_ready_pads_only_what_tma_cannot_read(shape, cut, ok):
+    """``ops.tma_ready`` returns a tensor TMA can read (start and outer
+    strides multiples of 16 bytes) with the same values: the tensor itself
+    where it already is one, else a zero-padded copy."""
+    t = torch.arange(np.prod(shape), dtype=torch.float32).reshape(shape)
+    if cut is not None:
+        t = t[..., cut[0]:cut[1]]
+    r = sops.tma_ready(t)
+    assert (r is t) == ok and torch.equal(r, t)
+    assert r.data_ptr() % 16 == 0 and r.stride(-1) == 1
+    assert all(s * 4 % 16 == 0 for s in r.stride()[:-1])
 
 
 @pytest.mark.parametrize("bad", ["states_shape", "states_dtype", "dy_dtype",
@@ -239,7 +302,7 @@ def test_bwd_plan_keeps_8_states_a_thread_at_most(N, split, channels):
 def test_bwd_wrapper_rejects(bad):
     u, dt, Bc, Cc, Al, dy, dh = (torch.from_numpy(a)
                                  for a in _inputs(1, 70, 8, 4, seed=0))
-    states = torch.zeros((1, 2, 8, 4))
+    states = torch.zeros((1, -(-70 // STATE_CHUNK), 8, 4))
     if bad == "states_shape":
         states = states[:, :1]
     elif bad == "states_dtype":
@@ -250,3 +313,26 @@ def test_bwd_wrapper_rejects(bad):
         dh = dh[:, :4]
     with pytest.raises(ValueError):
         sops.mamba_scan_bwd(u, dt, Bc, Cc, Al, states, dy, dh)
+
+
+@pytest.mark.parametrize("seq", [64, 128])
+def test_ssm_bf16_grad_check_passes_clean_and_fails_the_planted_fault(seq):
+    """``chip_smoke.ssm_grad_check`` (the gate of ``ssm_bf16_grad``) on a
+    reduced falcon-mamba in bf16, on the CPU with the plain scan: every
+    gradient leaf within ``BF16_GRAD_TOL`` of fp32, and the scan's
+    backward without the carry's decay, swapped in for one loss, beyond
+    it; the swap is undone."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models.config import ShapeCell
+
+    c16 = dataclasses.replace(reduced(get_config("falcon-mamba-7b")),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    batch = make_batch(c16, ShapeCell("t", seq, 2, "train"), seed=6,
+                       device="cpu")
+    backward = sops.MambaScan.__dict__["backward"]
+    l16, l32, _, rel, fault = CS.ssm_grad_check("cpu", c16, batch)
+    assert sops.MambaScan.__dict__["backward"] is backward
+    assert abs(l16 - l32) < 0.01 * abs(l32)
+    assert max(rel.values()) <= CS.BF16_GRAD_TOL
+    assert max(fault.values()) > 10 * CS.BF16_GRAD_TOL
