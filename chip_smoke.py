@@ -80,7 +80,17 @@ started together):
   version from the forward kernel's states every 16 steps (with planted
   faults that must fail the limit by 10x) and timed beside its bound, its
   launch one resident wave; its bf16 gradients at 2 layers against its
-  fp32 ones, within 5 %, where a planted scan fault must fail.
+  fp32 ones, within 5 %, where a planted scan fault must fail;
+* the sharded train step: a world-1 NCCL process group in this process
+  and a (1, 1) ``DeviceMesh``, olmo-1b (4 of 16 layers) and
+  falcon-mamba-7b (2 of 64) at published width, their params, moments
+  and batches DTensors placed by the sharding rules, two steps each held
+  to the plain-tensor steps from the same seed, the kernels launched on
+  the local shards as ``train_run`` launches them, and olmo's mesh
+  state checkpointed and restored into a plain state bit for bit;
+* the serving launcher: ``launch.serve.main`` on olmo-1b at its
+  published size, 8 requests and a live pool shrink, every completion
+  held to a teacher-forced prefill.
 
 Each phase prints one JSON line.  Then come the ``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -184,6 +194,10 @@ SERVE = dict(block_size=16, hbm_blocks=1024, max_batch=8,
 # serve_main (and chaos_path on its model): granite-3-8b at full width,
 # 20 of its 40 layers, for the script's time; dense_generate runs all 40
 SERVE_LAYERS = 20
+# the script's time: the depth of two earlier paths cut, every kernel and
+# gate kept (zamba2's shared block still runs 4 times a pass)
+MOE_LAYERS = 8              # moe_main: olmoe-1b-7b, 16 layers -> 8
+HYBRID_LAYERS = 24          # hybrid_main: zamba2-2.7b, 54 layers -> 24
 TOKEN_BUDGET = 16_384       # prefill tokens one scheduler tick may commit
 PREFIX_LEN, N_PREFIXES = 1024, 4
 SUFFIX = (64, 960)          # unique suffix length range, inclusive
@@ -305,18 +319,31 @@ def attn_kernels_vs_plain(dev):
                    (8, 8, lengths, 128), (32, 2, edges, 128),
                    (16, 16, lengths, 128), (64, 8, lengths, 112),
                    (64, 8, edges, 112)]
+    # 40 sequences of 8 KV heads fill the SMs with one split each: the
+    # lse written without the splits' merge
+    one_split = [int(x) for x in rng.integers(1, 2561, 40)]
     for dt in ("float32", "bfloat16"):
-        for H, Hkv, lens, d in paged_cases:
+        for H, Hkv, lens, d in paged_cases + [(32, 8, one_split, 128)]:
             args = paged_inputs(dev, getattr(torch, dt), lens, rng, H=H,
                                 Hkv=Hkv, d=d)
             got = pops.paged_attention(*args)
-            want = paged_attention_plain(*args)
+            want, want_lse = paged_attention_plain(*args, return_lse=True)
             err, ok = _err(got, want, ATTN_TOL[dt][1])
             require(ok, f"paged_attention {dt} H={H} Hkv={Hkv} d={d} "
                         f"lengths {lens} != plain (max err {err})")
-            rec["paged"].append(dict(dtype=dt, B=8, H=H, Hkv=Hkv, d=d,
-                                     bs=16, N=1024, nb=160, lengths=lens,
-                                     tol=ATTN_TOL[dt][1], max_abs_err=err))
+            # the lse route (the sharded decode's): the same output, and
+            # each head's log-sum-exp as the backward cases hold flash's
+            got2, lse = pops.paged_attention_lse(*args)
+            lse_err, lse_ok = _err(lse, want_lse, *LSE_TOL)
+            require(torch.equal(got2, got) and lse_ok, f"paged_attention_lse "
+                    f"{dt} H={H} Hkv={Hkv} d={d}: output equal "
+                    f"{torch.equal(got2, got)}, lse max err {lse_err}")
+            rec["paged"].append(dict(
+                dtype=dt, B=len(lens), H=H, Hkv=Hkv, d=d, bs=16, N=1024,
+                nb=160, lengths=lens,
+                splits=pops.plan_splits(len(lens), Hkv, 160 * 16),
+                tol=ATTN_TOL[dt][1], max_abs_err=err,
+                lse_tol=list(LSE_TOL), lse_max_abs_err=lse_err))
         for B, S_max, H, Hkv, d, lens in ONE_PAGE_CASES:
             g = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(
                 np.float32)).to(dev, getattr(torch, dt))
@@ -660,11 +687,13 @@ def profile_summary(prof, wall: float, groups: dict) -> dict:
                      for e in kernels[:8]])
 
 
-def teacher_forced(api, params, reqs, by_id, dev):
+def teacher_forced(api, params, reqs, by_id, dev, near_tie=NEAR_TIE,
+                   margins=None):
     """Hold each request's generated tokens against a teacher-forced
     ``forward_prefill`` over its prompt and tokens: (positions compared,
-    mismatches, near ties), a flip with a top-2 margin < ``NEAR_TIE``
-    being a near tie."""
+    mismatches, near ties), a flip with a top-2 margin < ``near_tie``
+    being a near tie.  ``margins``, a list where given, gets every
+    compared position's top-2 margin."""
     compared, mismatches, ties = 0, [], []
     for r in reqs:
         gen = by_id[r.req_id].tokens
@@ -675,13 +704,15 @@ def teacher_forced(api, params, reqs, by_id, dev):
         top2 = torch.topk(lg, 2, dim=-1)
         pick = top2.indices[:, 0].tolist()
         margin = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+        if margins is not None:
+            margins.extend(margin[:len(gen)])
         for i, (want, got) in enumerate(zip(pick, gen)):
             compared += 1
             if want == got:
                 continue
             item = dict(req=r.req_id, pos=i, engine=got, prefill=want,
                         margin=margin[i])
-            (ties if margin[i] < NEAR_TIE else mismatches).append(item)
+            (ties if margin[i] < near_tie else mismatches).append(item)
     return compared, mismatches, ties
 
 
@@ -822,14 +853,14 @@ def _served(phase: str, cfg, outs, n: int, launches, m, extra_flash=0):
 
 
 def moe_main(dev):
-    """Full-width, full-depth olmoe-1b-7b (64 experts, top-8) behind the
-    serving engine on ``serve_main``'s 32 requests; returns (phase
-    record, launches per kernel)."""
+    """Full-width olmoe-1b-7b (64 experts, top-8) cut to ``MOE_LAYERS`` of
+    its 16 layers behind the serving engine on ``serve_main``'s 32
+    requests; returns (phase record, launches per kernel)."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
 
     t0 = time.perf_counter()
-    cfg = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=MOE_LAYERS)
     api, params, init_s, weight_bytes, _ = _init_model(dev, cfg)
     reqs = make_requests(32, seed=0, vocab=cfg.vocab)
     eng, outs, rec, wall, launches = serve_run(dev, api, params, reqs)
@@ -839,7 +870,9 @@ def moe_main(dev):
     floor = expert_bytes(cfg)
     phase = dict(
         phase="moe_main", model=cfg.name, family=cfg.family,
-        n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_layers=cfg.n_layers,
+        reduced=f"layers 16 -> {MOE_LAYERS} (the script's time)",
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, n_experts=cfg.n_experts,
         experts_per_tok=cfg.experts_per_tok, moe_d_ff=cfg.moe_d_ff,
         dtype=cfg.dtype, n_params=_n_params(params),
@@ -1904,12 +1937,13 @@ def _greedy(logits):
     return logits[:, -1].argmax(-1, keepdim=True)
 
 
-def generate_main(dev, arch: str, phase: str):
-    """``arch`` at its published width and depth (random bf16 weights from
-    a seeded generator on the card) through the model API: one
-    ``prefill`` of ``GEN_BATCH`` prompts of ``GEN_PROMPT`` tokens, then
-    ``GEN_STEPS`` greedy ``decode`` steps, batch long-context generation.
-    Returns the phase record (``launches``: per kernel, in that run)."""
+def generate_main(dev, arch: str, phase: str, layers=None):
+    """``arch`` at its published width and depth, or cut to ``layers``
+    layers (random bf16 weights from a seeded generator on the card),
+    through the model API: one ``prefill`` of ``GEN_BATCH`` prompts of
+    ``GEN_PROMPT`` tokens, then ``GEN_STEPS`` greedy ``decode`` steps,
+    batch long-context generation.  Returns the phase record
+    (``launches``: per kernel, in that run)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.mamba_scan import ops as sops
@@ -1918,6 +1952,10 @@ def generate_main(dev, arch: str, phase: str):
     from repro_torch.models.model import build
 
     cfg = get_config(arch)
+    reduced = (f"layers {cfg.n_layers} -> {layers} (the script's time)"
+               if layers else None)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     api = build(cfg)
     gc.collect()  # earlier phases' reference cycles may still hold tensors
     torch.cuda.empty_cache()
@@ -1965,7 +2003,7 @@ def generate_main(dev, arch: str, phase: str):
     ssm = cfg.family in ("ssm", "hybrid")
     rec = dict(
         phase=phase, model=cfg.name, family=cfg.family,
-        n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_layers=cfg.n_layers, reduced=reduced, d_model=cfg.d_model,
         **(dict(d_inner=cfg.d_inner, ssm_state=cfg.ssm_state) if ssm else
            dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.hd)), dtype=cfg.dtype,
@@ -4310,6 +4348,273 @@ def ssm_bf16_grad(dev):
 
 # -- the sharded service and the online tuner on the day-scale stream ---------
 
+# -- the sharded train step and the serving launcher -----------------------------
+
+MESH_TRAIN = (("olmo-1b", 4), ("falcon-mamba-7b", 2))   # arch, layers kept
+MESH_STEPS = 2
+MESH_TOL = dict(loss=1e-5, param=1e-4,   # param: of the leaf's max |value|
+                logit=1e-4)              # logit: of the max |logit|
+MESH_DECODE = dict(batch=8, prompt=1024, max_len=1040)
+MESH_A_LAYER = {"olmo-1b": dict(flash_attention=2, flash_attention_bwd=1),
+                "falcon-mamba-7b": dict(mamba_scan=2, mamba_scan_bwd=1)}
+SERVE_LAUNCH_ARGS = ["--arch", "olmo-1b", "--full-config", "--requests", "8",
+                     "--shrink-to", "14", "--device", "cuda"]
+BF16_NEAR_TIE = 0.0625      # serve_launch: 4 bf16 ulps at a logit of 2 to 4
+
+
+def _mesh_decode(dev, mesh, arch: str, layers: int) -> tuple:
+    """One decode step of ``arch`` at published width cut to ``layers``
+    layers (bf16, random weights from seed 0) on a KV cache placed as a
+    DTensor by the rules' ``cache_specs`` on ``mesh`` (its sequence on
+    "model"), params and tokens placed as well, against the same step on
+    plain tensors: ``MESH_DECODE``'s batch after a prompt of its length.
+    The sharded decode runs ``paged_attention_lse`` on the local cache
+    and merges by the lse over the "model" dim; the logits within
+    ``MESH_TOL["logit"]`` of the max |logit|, and ``paged_attention``
+    launched once a layer.  Returns (record, launches of the mesh
+    step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build
+    from repro_torch.sharding import dtensor as dt
+    from repro_torch.sharding import rules
+    from repro_torch.training import step as step_lib
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    B, P = MESH_DECODE["batch"], MESH_DECODE["prompt"]
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (B, P + 1), generator=g,
+                           device=dev, dtype=torch.int32)
+    _, cache = api.prefill(params, tokens[:, :P],
+                           max_len=MESH_DECODE["max_len"])
+    decode = step_lib.make_decode_step(api)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, _ = decode(params, tokens[:, P:], cache)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    cspecs = rules.cache_specs(cfg, mesh, cache)
+    dcache = rules.distribute(cache, mesh, cspecs)
+    dparams = rules.distribute(params, mesh,
+                               rules.param_specs(cfg, mesh, params))
+    dtok = rules.distribute(tokens[:, P:], mesh, rules.batch_specs(
+        cfg, mesh, {"tokens": ((B, 1), torch.int32)})["tokens"])
+    _reset_train_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dt.implicit():
+        got, _ = decode(dparams, dtok, dcache)
+    got = dt.plain(got)
+    torch.cuda.synchronize()
+    mesh_ms = 1e3 * (time.perf_counter() - t0)
+    launches = _train_counts()
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max()) or 1.0
+    require(launches["paged_attention"] == layers and sum(
+        launches.values()) == layers, f"mesh_train {arch} decode: "
+        f"launches {launches}, want paged_attention {layers} and no other")
+    require(err <= MESH_TOL["logit"] * scale, f"mesh_train {arch} decode: "
+            f"logits {err} from the plain decode's (max |logit| {scale})")
+    rec = dict(arch=arch, layers=layers, batch=B, prompt=P,
+               max_len=MESH_DECODE["max_len"],
+               cache_placements=[str(p) for p in dcache.k.placements],
+               logit_max_abs_err=err, logit_max=scale,
+               logit_limit_use=err / (MESH_TOL["logit"] * scale),
+               mesh_ms=mesh_ms, plain_ms=plain_ms, launches=launches)
+    del params, dparams, cache, dcache, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def _mesh_train_one(dev, mesh, arch: str, layers: int, ckpt_dir) -> tuple:
+    """``arch`` at published width cut to ``layers`` layers (bf16, random
+    weights from seed 0): ``MESH_STEPS`` steps of ``make_train_step``
+    on plain tensors, then the same steps from the same seed on a state
+    and batches placed as DTensors on ``mesh`` by the sharding rules
+    (``training.step.state_specs``, ``rules.batch_specs``), 2
+    microbatches of 4 x 4,096 tokens from ``TokenPipeline``.  Each loss
+    within ``MESH_TOL["loss"]`` of the plain one, each param leaf within
+    ``MESH_TOL["param"]`` of its max |value|, the kernels launched as
+    ``train_run`` launches them; with ``ckpt_dir``, the mesh state saved
+    and restored into a plain state, bit for bit.  Returns (record,
+    launches of the mesh steps)."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.model import build
+    from repro_torch.sharding import rules
+    from repro_torch.training import optim, step as step_lib
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    api = build(cfg)
+    oc = optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    step = step_lib.make_train_step(api, step_lib.RunConfig(
+        microbatches=TRAIN_MICRO, adamw=oc))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    batches = [_train_batch(pipe, i, dev)[0] for i in range(MESH_STEPS)]
+
+    def fresh():
+        return step_lib.init_train_state(
+            api, torch.Generator(device=dev).manual_seed(0), oc, device=dev)
+
+    def run(state, place):
+        out, ms = [], []
+        for b in batches:
+            b = place(b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            out.append(float(m["loss"]))
+        return state, out, ms
+
+    plain, plain_loss, plain_ms = run(fresh(), lambda b: b)
+    state = fresh()
+    specs = step_lib.state_specs(cfg, mesh, state.params)
+    state = rules.distribute(state, mesh, specs)
+    bspecs = rules.batch_specs(cfg, mesh, {
+        k: (tuple(v.shape), v.dtype) for k, v in batches[0].items()})
+    _reset_train_counts()
+    state, mesh_loss, mesh_ms = run(
+        state, lambda b: rules.distribute(b, mesh, bspecs))
+    launches = _train_counts()
+    a_layer = MESH_A_LAYER[arch]
+    want = {k: TRAIN_MICRO * layers * MESH_STEPS * a_layer.get(k, 0)
+            for k in launches}
+    loss_err = max(abs(a - b) for a, b in zip(mesh_loss, plain_loss))
+    param_use = 0.0
+    for (path, got), (_, ref) in zip(_leaf_paths(state.params),
+                                     _leaf_paths(plain.params)):
+        full = got.full_tensor().float()
+        scale = float(ref.float().abs().max()) or 1.0
+        param_use = max(param_use, float((full - ref.float()).abs().max())
+                        / scale / MESH_TOL["param"])
+    require(launches == want, f"mesh_train {arch}: launches {launches}, "
+                              f"want {want} (train_run's rule)")
+    require(loss_err <= MESH_TOL["loss"], f"mesh_train {arch}: losses "
+            f"{mesh_loss} vs plain {plain_loss}")
+    require(param_use <= 1.0, f"mesh_train {arch}: a param leaf is "
+            f"{param_use} x its limit from the plain step's")
+    ckpt = None
+    if ckpt_dir is not None:
+        mgr = CheckpointManager(ckpt_dir, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(MESH_STEPS, state, blocking=True)
+        back = mgr.restore(MESH_STEPS, plain, device=dev)
+        diff = [p for (p, a), (_, b) in zip(_leaf_paths(back),
+                                            _leaf_paths(state))
+                if not torch.equal(a, b.full_tensor() if hasattr(
+                    b, "full_tensor") else b)]
+        require(not diff, f"mesh_train {arch}: restored leaves differ "
+                          f"from the saved mesh state: {diff[:5]}")
+        ckpt = dict(bit_equal=True, leaves=len(_leaf_paths(back)),
+                    seconds=time.perf_counter() - t0)
+        del back
+    placed = {p: [str(x) for x in leaf.placements]
+              for p, leaf in _leaf_paths(state.params)[:3]}
+    del state, plain, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=arch, layers=layers, n_params=cfg.n_params(),
+                dtype=cfg.dtype, steps=MESH_STEPS, microbatches=TRAIN_MICRO,
+                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, mesh_loss=mesh_loss,
+                plain_loss=plain_loss, loss_abs_err=loss_err,
+                param_limit_use=param_use, step_ms=mesh_ms,
+                plain_step_ms=plain_ms, launches=launches,
+                placements_sample=placed, checkpoint=ckpt), launches
+
+
+def mesh_train(dev):
+    """The sharded train step on the card: a world-1 NCCL process group
+    in this process (a ``HashStore``: no network), a (1, 1)
+    ``make_host_mesh`` on ``cuda``, and ``_mesh_train_one`` for each of
+    ``MESH_TRAIN``: olmo-1b at published width cut to 4 of 16 layers
+    (with the checkpoint round trip) and falcon-mamba-7b cut to 2 of 64;
+    then ``_mesh_decode`` on olmo-1b's cut.  The group is destroyed at
+    the end, whatever happens."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    ckpt_dir = tempfile.mkdtemp(prefix="mesh_train_ckpt_")
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        runs, launches = [], {}
+        for i, (arch, layers) in enumerate(MESH_TRAIN):
+            rec, n = _mesh_train_one(dev, mesh, arch, layers,
+                                     ckpt_dir if i == 0 else None)
+            runs.append(rec)
+            launches = {k: launches.get(k, 0) + v for k, v in n.items()}
+        dec, n = _mesh_decode(dev, mesh, *MESH_TRAIN[0])
+        launches = {k: launches.get(k, 0) + v for k, v in n.items()}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return dict(phase="mesh_train", mesh="1x1 (data, model) over NCCL",
+                runs=runs, decode=dec, launches=launches,
+                tolerance=MESH_TOL,
+                seconds=time.perf_counter() - t0), launches
+
+
+def serve_launch(dev):
+    """``launch.serve.main`` as a user runs it: olmo-1b at its published
+    size (bf16, random weights from seed 0), 8 requests, the pool
+    live-shrunk from 28 to 14 blocks halfway, prefill through
+    ``flash_attention`` and decode through ``paged_attention``.  Every
+    completion is held to ``teacher_forced``: the prefill must pick the
+    served token at every generated position, except where its top-2
+    margin is under ``BF16_NEAR_TIE`` (the two paths round their bf16
+    activations differently)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build
+
+    t0 = time.perf_counter()
+    _reset_train_counts()
+    out = serve.main(SERVE_LAUNCH_ARGS)
+    launches = _train_counts()
+    api = build(out["cfg"])
+    by_id = {c.req_id: c for c in out["completions"]}
+    reqs = out["requests"]
+    require(len(by_id) == len(reqs) and all(
+        c.status == "completed" and len(c.tokens) > 0
+        for c in by_id.values()), "serve_launch: a request did not complete")
+    require(launches["flash_attention"] > 0
+            and launches["paged_attention"] > 0,
+            f"serve_launch: launches {launches}")
+    margins = []
+    compared, mismatches, ties = teacher_forced(
+        api, out["params"], reqs, by_id, dev, near_tie=BF16_NEAR_TIE,
+        margins=margins)
+    require(not mismatches, f"serve_launch: served tokens != teacher-"
+                            f"forced prefill tokens: {mismatches}")
+    require(len(margins) == compared, f"serve_launch: {len(margins)} "
+                                      f"margins for {compared} positions")
+    stats = out["stats"]
+    del out, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(phase="serve_launch", argv=SERVE_LAUNCH_ARGS,
+                requests=len(reqs), positions_compared=compared,
+                mismatches=0, near_ties=len(ties),
+                near_tie_margin=BF16_NEAR_TIE,
+                # how much of the check the exemption could swallow: the
+                # compared positions whose top-2 margin is under it
+                positions_under_margin=sum(m < BF16_NEAR_TIE
+                                           for m in margins),
+                margin_min=min(margins), margin_p10=float(
+                    np.percentile(margins, 10)),
+                pool=dataclasses.asdict(stats), launches=launches,
+                seconds=time.perf_counter() - t0), launches
+
+
 SHARD_COUNTS = (2, 4, 8)    # benchmarks/shard.py::SHARD_COUNTS
 THREADS = (1, 2, 4, 8)      # benchmarks/shard.py::THREADS
 ORACLE_PREFIX = 1 << 18     # shard_path: requests held against the host service
@@ -4850,7 +5155,8 @@ def main() -> int:
     emit(generate_consistency(dev, "falcon-mamba-7b", "ssm_consistency"))
     hyb_check = hybrid_attn_vs_plain(dev)
     emit(hyb_check)
-    hyb = generate_main(dev, "zamba2-2.7b", "hybrid_main")
+    hyb = generate_main(dev, "zamba2-2.7b", "hybrid_main",
+                        layers=HYBRID_LAYERS)
     hyb_launches = hyb["launches"]
     want = dict(mamba_scan=0, flash_attention=hyb["shared_invocations"],
                 paged_attention=GEN_STEPS * hyb["shared_invocations"])
@@ -4908,13 +5214,22 @@ def main() -> int:
     ssm_train, ssm_train_launches = ssm_train_main(dev)
     emit(ssm_train)
     emit(ssm_bf16_grad(dev))
+    # -- the sharded train step and the serving launcher ------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshed, mesh_launches = mesh_train(dev)
+    emit(meshed)
+    launched, launch_launches = serve_launch(dev)
+    emit(launched)
 
     family_launches = dict(moe_main=moe_launches, moe_wide=wide_launches,
                            vlm_main=vlm_launches,
                            dense_generate=dense["launches"],
                            encdec_main=enc_launches,
                            train_main=train_launches,
-                           ssm_train_main=ssm_train_launches)
+                           ssm_train_main=ssm_train_launches,
+                           mesh_train=mesh_launches,
+                           serve_launch=launch_launches)
     by_family = {k: {p: n[k] for p, n in family_launches.items()}
                  for k in ("flash_attention", "paged_attention")}
 
@@ -4997,9 +5312,11 @@ def main() -> int:
                     "flash_attention_bwd.cu",
              replaces="no Pallas kernel: XLA's autodiff of "
                       "src/repro/models/layers.py:128 attention",
-             launches=train_launches["flash_attention_bwd"],
+             launches=train_launches["flash_attention_bwd"]
+             + mesh_launches["flash_attention_bwd"],
              launches_by_path=dict(
-                 train_main=train_launches["flash_attention_bwd"]),
+                 train_main=train_launches["flash_attention_bwd"],
+                 mesh_train=mesh_launches["flash_attention_bwd"]),
              max_abs_err=bwd_check["max_abs_err"],
              max_limit_use=bwd_check["max_limit_use"],
              max_fp32_limit_use=bwd_check["max_fp32_limit_use"],
@@ -5015,10 +5332,12 @@ def main() -> int:
              source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
              replaces="src/repro/kernels/mamba_scan/mamba_scan.py:23",
              launches=ssm_launches["mamba_scan"]
-             + ssm_train_launches["mamba_scan"],
+             + ssm_train_launches["mamba_scan"]
+             + mesh_launches["mamba_scan"],
              launches_by_path=dict(
                  ssm_main=ssm_launches["mamba_scan"],
-                 ssm_train_main=ssm_train_launches["mamba_scan"]),
+                 ssm_train_main=ssm_train_launches["mamba_scan"],
+                 mesh_train=mesh_launches["mamba_scan"]),
              max_abs_err=scan_check["max_abs_err"],
              max_states_abs_err=scan_bwd["max_states_err"],
              ms_with_states=sbt["fwd"]["ms_with_states"],
@@ -5035,9 +5354,11 @@ def main() -> int:
              replaces="no Pallas kernel: XLA's autodiff of "
                       "src/repro/models/mamba.py:128-144 (the chunked "
                       "associative scan)",
-             launches=ssm_train_launches["mamba_scan_bwd"],
+             launches=ssm_train_launches["mamba_scan_bwd"]
+             + mesh_launches["mamba_scan_bwd"],
              launches_by_path=dict(
-                 ssm_train_main=ssm_train_launches["mamba_scan_bwd"]),
+                 ssm_train_main=ssm_train_launches["mamba_scan_bwd"],
+                 mesh_train=mesh_launches["mamba_scan_bwd"]),
              max_abs_err=scan_bwd["max_abs_err"],
              max_limit_use=scan_bwd["max_limit_use"],
              min_fault_limit_use=scan_bwd["min_fault_limit_use"],

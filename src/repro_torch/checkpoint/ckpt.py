@@ -8,9 +8,18 @@ dicts and namedtuples, walked here; a tensor leaf goes to the host with
 writes one (numpy has no bf16: ``ml_dtypes`` gives the reference's): an
 ``.npy`` of 2-byte void elements, descr ``'<V2'``, holding the bf16
 bits, manifest dtype ``"bfloat16"``, the digest of those bytes; it
-restores as a bf16 tensor.  The reference's ``shardings=`` becomes
-``device=``: ``restore`` returns numpy leaves (a bf16 leaf: a bf16 CPU
-tensor), or tensors on that device.
+restores as a bf16 tensor.  ``restore`` returns numpy leaves (a bf16
+leaf: a bf16 CPU tensor), or tensors on ``device=``, or, given the
+reference's ``shardings=`` as ``(mesh, logical specs)``, DTensors
+placed on that mesh (``sharding.rules.distribute``), whatever mesh the
+step was saved from: the elastic restore.
+
+A DTensor state (the sharded train step's) is saved whole: ``save``
+gathers each leaf (``full_tensor()``, a collective, so every rank of
+the mesh must call ``save``) in the caller's thread, and rank 0 alone
+writes, on the save thread when ``blocking`` is False, which runs no
+collective.  A blocking save, and ``wait`` after an asynchronous one,
+end with a barrier, so that every rank may then restore the step.
 
 Design for 1000+ nodes (DESIGN.md §6): every host writes only its
 addressable shards, keyed by (step, leaf-path, shard-index), plus a
@@ -38,6 +47,8 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.dtensor import is_dtensor
 
 
 def _leaf_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -72,6 +83,8 @@ BF16_HOST = np.dtype("V2")
 
 def _to_host(x: Any) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        if is_dtensor(x):
+            x = x.full_tensor()
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
             return x.contiguous().view(torch.int16).numpy().view(BF16_HOST)
@@ -118,6 +131,7 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._dist_pending = False
 
     # -- save ------------------------------------------------------------------
     def save(self, step: int, state: Any, blocking: bool = True) -> None:
@@ -125,19 +139,30 @@ class CheckpointManager:
         an earlier asynchronous save is finished first: the reference's
         blocking save does not wait, and a blocking save of the step an
         asynchronous one is still writing races it on the same files."""
+        dist_save = any(is_dtensor(x) for _, x in _leaf_paths(state))
         host_state = _map_tree(_to_host, state)
         self.wait()
+        writer = not dist_save or torch.distributed.get_rank() == 0
         if blocking:
-            self._write(step, host_state)
+            if writer:
+                self._write(step, host_state)
+            if dist_save:
+                torch.distributed.barrier()
         else:
-            self._thread = threading.Thread(
-                target=self._write, args=(step, host_state), daemon=True)
-            self._thread.start()
+            if writer:
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, host_state),
+                    daemon=True)
+                self._thread.start()
+            self._dist_pending = dist_save
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._dist_pending:
+            self._dist_pending = False
+            torch.distributed.barrier()
 
     def _write(self, step: int, host_state: Any) -> None:
         tmp = self.dir / f".tmp_step_{step}"
@@ -178,10 +203,19 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, step: Optional[int], like: Any,
-                device=None, verify: bool = False) -> Any:
+                device=None, verify: bool = False, shardings=None) -> Any:
         """Restore into the structure of ``like``: numpy leaves (a bf16
         leaf a bf16 tensor), or tensors on ``device`` when one is
-        named."""
+        named, or with ``shardings=(mesh, specs)`` DTensors on ``mesh``
+        placed by the logical specs ``specs`` (a tree like ``like``'s;
+        the leaves are read on ``device``, by default the mesh's device
+        type)."""
+        if shardings is not None:
+            from repro_torch.sharding import rules
+            mesh, specs = shardings
+            tree = self.restore(step, like, device or mesh.device_type,
+                                verify)
+            return rules.distribute(tree, mesh, specs)
         if step is None:
             step = self.latest_step()
         if step is None:

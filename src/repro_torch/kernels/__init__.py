@@ -16,3 +16,20 @@ def refuse_grad(kernel: str, tensors, missing: str) -> None:
             f"{kernel} on CUDA has no backward: {missing}.  Call it under "
             f"torch.no_grad() (inference), or on CPU tensors, whose plain "
             f"version autograd differentiates")
+
+
+def runs_plain(kernel: str, t) -> bool:
+    """Whether a wrapper handed ``t`` runs its kernel's plain version: a
+    CPU tensor that holds data.  A CUDA tensor goes to the kernel's
+    operator (``torch.ops.repro_torch``), whose CUDA implementation
+    launches the kernel; so does a tensor of shapes only (a
+    ``FakeTensorMode`` trace, on any device), whose registered fake
+    implementation gives the outputs' shapes.  Any other device
+    raises."""
+    if t.device.type == "cuda":
+        return False
+    if t.device.type != "cpu":
+        raise ValueError(f"{kernel} runs on cuda or cpu, not {t.device}")
+    from torch._subclasses.fake_tensor import is_fake
+
+    return not is_fake(t)

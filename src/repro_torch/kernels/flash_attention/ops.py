@@ -33,6 +33,12 @@ fp32 -> ``"cuda_cores"``.  The bf16 kernels round P and dS to bf16
 before their products; ``flash_attention_bwd``'s CPU path, the plain
 version, rounds where they do (``BWD_ROUNDING``).
 
+The launches are PyTorch operators, ``torch.ops.repro_torch``'s
+``flash_attention``, ``flash_attention_lse`` and ``flash_attention_bwd``:
+their CUDA implementations launch the kernels, and their fake
+implementations give the outputs' shapes, so a ``FakeTensorMode`` trace
+(the dry-run) runs each as one op on tensors of any device.
+
 ``launch_count`` counts forward launches and ``bwd_launch_count``
 backward launches (plain integers; reset them by assigning 0), so a run
 can show that its path went through the kernels.
@@ -45,10 +51,12 @@ import pathlib
 
 import torch
 
+from repro_torch.kernels import runs_plain
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_plain, flash_attention_lse_plain,
     flash_attention_plain,
 )
+from repro_torch.sharding import dtensor
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
@@ -71,6 +79,7 @@ bwd_launch_count = 0
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Hold the inputs to what the kernel takes; raise otherwise."""
+    dtensor.refuse("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be 4-d (B, S, heads, head_dim)")
     B, Sq, H, hd = q.shape
@@ -172,55 +181,51 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse_t
 
 
-def _device(q: torch.Tensor) -> str:
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    return q.device.type
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """The forward kernel, no lse: the CUDA implementation launches it."""
+    return _launch(q, k, v, causal, lse=False)[0]
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True):
-    """``flash_attention`` that also returns each row's natural-log
-    log-sum-exp of its scaled, masked scores: (out (B, Sq, H, hd), lse
-    (B, H, Sq) fp32).  No autograd graph is recorded on CUDA."""
-    _check(q, k, v)
-    if _device(q) == "cpu":
-        return (flash_attention_plain(q, k, v, causal),
-                flash_attention_lse_plain(q, k, v, causal))
+@_fwd_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=(),
+                         device_types="cuda")
+def _fwd_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel with each row's lse."""
     return _launch(q, k, v, causal, lse=True)
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        causal: bool = True):
-    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal)``
-    given its output ``o``, its ``lse`` (``flash_attention_fwd``) and the
-    output's gradient ``do``, in the inputs' dtype.  On CUDA tensors it
-    launches ``csrc/flash_attention_bwd.cu``'s kernels of ``bwd_route``
-    (every tensor made contiguous first) or raises; on CPU tensors it
-    runs the plain version, with P and dS rounded as those kernels round
-    them (``BWD_ROUNDING``)."""
+@_fwd_lse_op.register_fake
+def _(q, k, v, causal):
+    B, Sq, H, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+            causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels of ``bwd_route``, every input made contiguous
+    first."""
     global bwd_launch_count
-    _check(q, k, v)
-    kernel = bwd_route(q.dtype)
-    B, Sq, H, hd = q.shape
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} must "
-                         f"be q's {tuple(q.shape)}")
-    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be fp32 {(B, H, Sq)}, not {lse.dtype} "
-                         f"{tuple(lse.shape)}")
-    if _device(q) == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                         round_to=BWD_ROUNDING[q.dtype])
     from repro_torch.kernels import build
 
+    kernel = bwd_route(q.dtype)
     lib = build.load("flash_attention_bwd", BWD_SOURCE, BWD_SYMBOLS)
     q, k, v, lse = (t.contiguous() for t in (q, k, v, lse))
     o, do = o.to(q.dtype).contiguous(), do.to(q.dtype).contiguous()
     if kernel == "wgmma":
         check_tma(q, k, v, o, do)
+    B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -238,14 +243,57 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+@_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True):
+    """``flash_attention`` that also returns each row's natural-log
+    log-sum-exp of its scaled, masked scores: (out (B, Sq, H, hd), lse
+    (B, H, Sq) fp32).  No autograd graph is recorded on CUDA."""
+    _check(q, k, v)
+    if runs_plain("flash_attention", q):
+        return (flash_attention_plain(q, k, v, causal),
+                flash_attention_lse_plain(q, k, v, causal))
+    return _fwd_lse_op(q, k, v, bool(causal))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal)``
+    given its output ``o``, its ``lse`` (``flash_attention_fwd``) and the
+    output's gradient ``do``, in the inputs' dtype.  On CUDA tensors it
+    launches ``csrc/flash_attention_bwd.cu``'s kernels of ``bwd_route``
+    (every tensor made contiguous first) or raises; on CPU tensors it
+    runs the plain version, with P and dS rounded as those kernels round
+    them (``BWD_ROUNDING``)."""
+    _check(q, k, v)
+    bwd_route(q.dtype)
+    B, Sq, H, hd = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} must "
+                         f"be q's {tuple(q.shape)}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 {(B, H, Sq)}, not {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if runs_plain("flash_attention_bwd", q):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                         round_to=BWD_ROUNDING[q.dtype])
+    return _bwd_op(q, k, v, o, lse, do, bool(causal))
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: the forward kernel with lse,
-    the backward kernel.  CUDA tensors only (the CPU path is the plain
-    version, which autograd differentiates itself)."""
+    the backward kernel.  CUDA tensors, or shape-only ones (the CPU path
+    is the plain version, which autograd differentiates itself)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        o, lse = _launch(q, k, v, causal, lse=True)
+        o, lse = _fwd_lse_op(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
@@ -264,8 +312,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on CUDA through ``FlashAttention`` when grad is enabled and an input
     requires grad."""
     _check(q, k, v)
-    if _device(q) == "cpu":
+    if runs_plain("flash_attention", q):
         return flash_attention_plain(q, k, v, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, bool(causal))
-    return _launch(q, k, v, causal, lse=False)[0]
+    return _fwd_op(q, k, v, bool(causal))

@@ -19,6 +19,12 @@ plain forward with ``chunk_states`` and the plain backward,
 ``mamba_scan_bwd_plain``.
 Otherwise the call is the plain launch, with no states and nothing saved.
 
+The launches are PyTorch operators, ``torch.ops.repro_torch``'s
+``mamba_scan``, ``mamba_scan_states`` and ``mamba_scan_bwd``: their
+CUDA implementations launch the kernels, and their fake implementations
+give the outputs' shapes, so a ``FakeTensorMode`` trace (the dry-run)
+runs each as one op on tensors of any device.
+
 ``launch_count`` counts forward launches and ``bwd_launch_count``
 backward launches (plain integers; reset them by assigning 0), so a run
 can show that its path went through the kernels.  ``scan_plan`` and
@@ -31,13 +37,15 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import runs_plain
 from repro_torch.kernels.mamba_scan.ref import (
     STATE_CHUNK, mamba_scan_bwd_plain, mamba_scan_plain,
 )
+from repro_torch.sharding import dtensor
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 BWD_SOURCE = SOURCE.with_name("mamba_scan_bwd.cu")
@@ -152,6 +160,7 @@ bwd_launch_count = 0
 
 def _check(u, dt, Bc, Cc, A_log) -> None:
     """Hold shapes, dtypes, devices and layout to what the kernel takes."""
+    dtensor.refuse("mamba_scan", u, dt, Bc, Cc, A_log)
     if u.dim() != 3 or dt.dim() != 3 or Bc.dim() != 3 or Cc.dim() != 3 \
             or A_log.dim() != 2:
         raise ValueError("u, dt, Bc and Cc must be 3-d and A_log 2-d")
@@ -242,51 +251,59 @@ def _launch(u, dt, Bc, Cc, A_log, states: bool):
     return y, h_last, st
 
 
-def mamba_scan_fwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
-                   Cc: torch.Tensor, A_log: torch.Tensor):
-    """``mamba_scan`` that also returns the states the backward starts
-    from: (y, h_last, states (B, ceil(S / STATE_CHUNK), din, N) fp32, h
-    before every ``STATE_CHUNK`` steps).  No autograd graph is
-    recorded."""
-    _check(u, dt, Bc, Cc, A_log)
-    if _device(u) == "cpu":
-        return mamba_scan_plain(u, dt, Bc, Cc, A_log, chunk_states=True)
+@torch.library.custom_op("repro_torch::mamba_scan", mutates_args=(),
+                         device_types="cuda")
+def _scan_op(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+             Cc: torch.Tensor, A_log: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel, no states: the CUDA implementation launches
+    it."""
+    return _launch(u, dt, Bc, Cc, A_log, states=False)[:2]
+
+
+def _scan_outs(u, A_log):
+    B, S, din = u.shape
+    f32 = dict(dtype=torch.float32, device=u.device)
+    return (torch.empty((B, S, din), dtype=u.dtype, device=u.device),
+            torch.empty((B, din, A_log.shape[1]), **f32))
+
+
+@_scan_op.register_fake
+def _(u, dt, Bc, Cc, A_log):
+    return _scan_outs(u, A_log)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_states", mutates_args=(),
+                         device_types="cuda")
+def _states_op(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+               Cc: torch.Tensor, A_log: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward kernel with the states the backward starts from."""
     return _launch(u, dt, Bc, Cc, A_log, states=True)
 
 
-def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
-                   Cc: torch.Tensor, A_log: torch.Tensor,
-                   states: torch.Tensor, dy: torch.Tensor,
-                   dh_last: torch.Tensor | None = None):
-    """The gradients (du, ddt, dB, dC, dA_log) of ``mamba_scan(u, dt, Bc,
-    Cc, A_log)`` given its ``states`` (``mamba_scan_fwd``), y's gradient
-    ``dy`` and h_last's ``dh_last`` (or None), each in its input's type
-    (dA_log fp32).  On CUDA tensors it launches ``csrc/mamba_scan_bwd.cu``
-    and sums its per-block partials, or raises; on CPU tensors it runs
-    ``mamba_scan_bwd_plain``."""
-    global bwd_launch_count
-    _check(u, dt, Bc, Cc, A_log)
+@_states_op.register_fake
+def _(u, dt, Bc, Cc, A_log):
     B, S, din = u.shape
-    N = A_log.shape[1]
-    nst = -(-S // STATE_CHUNK)
-    if states.shape != (B, nst, din, N) or states.dtype != torch.float32:
-        raise ValueError(f"states must be fp32 {(B, nst, din, N)}, not "
-                         f"{states.dtype} {tuple(states.shape)}")
-    if dy.shape != u.shape or dy.dtype != u.dtype:
-        raise ValueError(f"dy must be u's {u.dtype} {tuple(u.shape)}, not "
-                         f"{dy.dtype} {tuple(dy.shape)}")
-    if dh_last is not None and (dh_last.shape != (B, din, N)
-                                or dh_last.dtype != torch.float32):
-        raise ValueError(f"dh_last must be fp32 {(B, din, N)}, not "
-                         f"{dh_last.dtype} {tuple(dh_last.shape)}")
-    if any(t.device != u.device for t in (states, dy, dh_last)
-           if t is not None):
-        raise ValueError("states, dy or dh_last is not on u's device")
-    if _device(u) == "cpu":
-        return mamba_scan_bwd_plain(u, dt, Bc, Cc, A_log, states, dy, dh_last)
+    return _scan_outs(u, A_log) + (torch.empty(
+        (B, -(-S // STATE_CHUNK), din, A_log.shape[1]), dtype=torch.float32,
+        device=u.device),)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+            Cc: torch.Tensor, A_log: torch.Tensor, states: torch.Tensor,
+            dy: torch.Tensor, dh_last: Optional[torch.Tensor]
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor]:
+    """The backward kernel, its per-block partials summed."""
+    global bwd_launch_count
     from repro_torch.kernels import build
 
     lib = build.load("mamba_scan_bwd", BWD_SOURCE, BWD_SYMBOLS)
+    B, S, din = u.shape
+    N = A_log.shape[1]
     if dh_last is not None:
         dh_last = dh_last.contiguous()
     cb = bwd_plan(B, S, din, N).channel_blocks
@@ -314,6 +331,56 @@ def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
             dAp.sum(0))
 
 
+@_bwd_op.register_fake
+def _(u, dt, Bc, Cc, A_log, states, dy, dh_last):
+    return (torch.empty_like(u), torch.empty_like(dt), torch.empty_like(Bc),
+            torch.empty_like(Cc), torch.empty_like(A_log))
+
+
+def mamba_scan_fwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+                   Cc: torch.Tensor, A_log: torch.Tensor):
+    """``mamba_scan`` that also returns the states the backward starts
+    from: (y, h_last, states (B, ceil(S / STATE_CHUNK), din, N) fp32, h
+    before every ``STATE_CHUNK`` steps).  No autograd graph is
+    recorded."""
+    _check(u, dt, Bc, Cc, A_log)
+    if runs_plain("mamba_scan", u):
+        return mamba_scan_plain(u, dt, Bc, Cc, A_log, chunk_states=True)
+    return _states_op(u, dt, Bc, Cc, A_log)
+
+
+def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+                   Cc: torch.Tensor, A_log: torch.Tensor,
+                   states: torch.Tensor, dy: torch.Tensor,
+                   dh_last: torch.Tensor | None = None):
+    """The gradients (du, ddt, dB, dC, dA_log) of ``mamba_scan(u, dt, Bc,
+    Cc, A_log)`` given its ``states`` (``mamba_scan_fwd``), y's gradient
+    ``dy`` and h_last's ``dh_last`` (or None), each in its input's type
+    (dA_log fp32).  On CUDA tensors it launches ``csrc/mamba_scan_bwd.cu``
+    and sums its per-block partials, or raises; on CPU tensors it runs
+    ``mamba_scan_bwd_plain``."""
+    _check(u, dt, Bc, Cc, A_log)
+    B, S, din = u.shape
+    N = A_log.shape[1]
+    nst = -(-S // STATE_CHUNK)
+    if states.shape != (B, nst, din, N) or states.dtype != torch.float32:
+        raise ValueError(f"states must be fp32 {(B, nst, din, N)}, not "
+                         f"{states.dtype} {tuple(states.shape)}")
+    if dy.shape != u.shape or dy.dtype != u.dtype:
+        raise ValueError(f"dy must be u's {u.dtype} {tuple(u.shape)}, not "
+                         f"{dy.dtype} {tuple(dy.shape)}")
+    if dh_last is not None and (dh_last.shape != (B, din, N)
+                                or dh_last.dtype != torch.float32):
+        raise ValueError(f"dh_last must be fp32 {(B, din, N)}, not "
+                         f"{dh_last.dtype} {tuple(dh_last.shape)}")
+    if any(t.device != u.device for t in (states, dy, dh_last)
+           if t is not None):
+        raise ValueError("states, dy or dh_last is not on u's device")
+    if runs_plain("mamba_scan_bwd", u):
+        return mamba_scan_bwd_plain(u, dt, Bc, Cc, A_log, states, dy, dh_last)
+    return _bwd_op(u, dt, Bc, Cc, A_log, states, dy, dh_last)
+
+
 class MambaScan(torch.autograd.Function):
     """The scan with its gradient: on CUDA the forward kernel with its
     states and the backward kernel, on the CPU their plain versions."""
@@ -335,12 +402,6 @@ class MambaScan(torch.autograd.Function):
                      for g, need in zip(grads, ctx.needs_input_grad))
 
 
-def _device(u: torch.Tensor) -> str:
-    if u.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"mamba_scan runs on cuda or cpu, not {u.device}")
-    return u.device.type
-
-
 def mamba_scan(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
                Cc: torch.Tensor, A_log: torch.Tensor):
     """u/dt: (B, S, din); Bc/Cc: (B, S, N); A_log: (din, N) ->
@@ -351,6 +412,6 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     ins = (u, dt, Bc, Cc, A_log)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         return MambaScan.apply(*ins)
-    if _device(u) == "cpu":
+    if runs_plain("mamba_scan", u):
         return mamba_scan_plain(*ins)
-    return _launch(*ins, states=False)[:2]
+    return _scan_op(*ins)

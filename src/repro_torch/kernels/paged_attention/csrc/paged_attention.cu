@@ -68,6 +68,7 @@ constexpr int kVec = 8;                 // fp32 elements of a row per lane
 constexpr int kMaxD = 16 * kVec;
 constexpr int kMaxG = 16;
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -129,6 +130,7 @@ struct Args {
   long long o_b, o_h;            // out strides (batch, head)
   int H, Hkv, d, bs, n_splits;
   float scale_log2;              // log2(e) / sqrt(d)
+  float* lse;                    // (B, H) natural-log lse, or null
 };
 
 // Chunks [lo, hi) of split s when a sequence's n_chunks chunks are dealt
@@ -144,7 +146,8 @@ __device__ __forceinline__ void split_chunks(int s, int n_chunks,
 // split, write acc / max(l, 1e-30); otherwise write this split's partial,
 // and let the last block of the (sequence, KV head) to arrive (an atomic
 // counter, which that block resets) merge the splits, with 2 n_splits G
-// floats of shared memory past sm_acc.
+// floats of shared memory past sm_acc.  Where a.lse is set, the block that
+// writes a head's output also writes its lse, ln 2 (max + log2 sum).
 template <typename T, int PL>
 __device__ __forceinline__ void finish(
     const float* sm_m, const float* sm_l, const float* sm_acc, int b, int kh,
@@ -169,6 +172,9 @@ __device__ __forceinline__ void finish(
     if (a.n_splits == 1) {
       out[b * a.o_b + (long long)(kh * G + g) * a.o_h + dim] =
           from_f<T>(num / fmaxf(den, 1e-30f));
+      if (a.lse != nullptr && dim == 0)
+        a.lse[(long long)b * a.H + kh * G + g] =
+            (M + log2f(fmaxf(den, 1e-30f))) * kLn2;
     } else {
       part_acc[(row * G + g) * d + dim] = num;
       if (dim == 0) {
@@ -206,6 +212,9 @@ __device__ __forceinline__ void finish(
     }
     const float inv = 1.f / fmaxf(den, 1e-30f);
     for (int s = 0; s < ns; ++s) wm[s * G + g] *= inv;
+    if (a.lse != nullptr)
+      a.lse[(long long)b * a.H + kh * G + g] =
+          (M + log2f(fmaxf(den, 1e-30f))) * kLn2;
   }
   __syncthreads();
   for (int it = tid; it < G * d; it += kThreads) {
@@ -742,7 +751,9 @@ int launch(const void* q, const void* kpool, const void* vpool,
 
 // Plain C entry point (bound with ctypes).  `strides` holds 11 element
 // strides: q (batch, head), kpool (slot, offset, head), vpool (slot,
-// offset, head), block_tables (row), out (batch, head).  With n_splits >
+// offset, head), block_tables (row), out (batch, head).  `lse`, where not
+// null, is a contiguous (B, H) fp32 output: each head's natural-log
+// log-sum-exp of its scaled scores.  With n_splits >
 // 1, `part` is fp32 scratch of B * H * n_splits * (d + 2) elements and
 // `counters` B * Hkv int32 zeros (left zero by the launch); both are unused
 // with one split.  The pools' rows must start on 16-byte boundaries.
@@ -750,9 +761,9 @@ int launch(const void* q, const void* kpool, const void* vpool,
 // not synchronise, and returns the launch's cudaError_t (0 = cudaSuccess).
 extern "C" int paged_attention_launch(
     const void* q, const void* kpool, const void* vpool,
-    const int* block_tables, const int* lengths, void* out, float* part,
-    int* counters, const long long* strides, int B, int H, int Hkv, int d,
-    int bs, int n_splits, int dtype, void* stream) {
+    const int* block_tables, const int* lengths, void* out, float* lse,
+    float* part, int* counters, const long long* strides, int B, int H,
+    int Hkv, int d, int bs, int n_splits, int dtype, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxG || d <= 0 ||
       d > kMaxD || d % 8 != 0 || bs <= 0 || n_splits <= 0)
@@ -760,7 +771,7 @@ extern "C" int paged_attention_launch(
   const long long* s = strides;
   const Args a{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9],
                s[10], H, Hkv, d, bs, n_splits,
-               1.4426950408889634f / sqrtf((float)d)};
+               1.4426950408889634f / sqrtf((float)d), lse};
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return launch(q, kpool, vpool, block_tables, lengths, out, part, counters,
                 a, B, dtype, static_cast<cudaStream_t>(stream));

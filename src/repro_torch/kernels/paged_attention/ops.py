@@ -30,6 +30,14 @@ A CUDA call raises ``RuntimeError`` when grad is enabled and an input
 requires grad (``kernels.refuse_grad``): the kernel serves decode and
 has no backward, and its output would carry no gradient.
 
+``paged_attention_lse`` also returns each (sequence, head)'s
+log-sum-exp (B, H) fp32, written by the same launch.  The launches are
+PyTorch operators, ``torch.ops.repro_torch``'s ``paged_attention`` and
+``paged_attention_lse``: their CUDA implementations launch the kernel,
+and their fake implementations give the outputs' shapes, so a
+``FakeTensorMode`` trace (the dry-run) runs each as one op on tensors
+of any device.
+
 ``launch_count`` counts kernel launches (one a call); a plain integer,
 reset by assigning 0, so a run can show that its path went through the
 kernel.
@@ -44,11 +52,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import runs_plain
 from repro_torch.kernels.paged_attention.ref import paged_attention_plain
+from repro_torch.sharding import dtensor
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 _p, _i32 = ctypes.c_void_p, ctypes.c_int
-SYMBOLS = {"paged_attention_launch": [_p] * 9 + [_i32] * 7 + [_p]}
+SYMBOLS = {"paged_attention_launch": [_p] * 10 + [_i32] * 7 + [_p]}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM, MAX_GROUP = 128, 16
 CHUNK = 16        # positions a ring stage holds (csrc: kChunk)
@@ -65,6 +75,7 @@ launch_count = 0
 
 def _check(q, kpool, vpool, block_tables, lengths) -> None:
     """Hold shapes, dtypes, devices and layout to what the kernel takes."""
+    dtensor.refuse("paged_attention", q, kpool, vpool, block_tables, lengths)
     if q.dim() != 3 or kpool.dim() != 4:
         raise ValueError(f"q must be (B, H, d) and the pools (N, bs, Hkv, "
                          f"d); got {tuple(q.shape)} and {tuple(kpool.shape)}")
@@ -159,27 +170,10 @@ def _scratch_for(device, stream: int, B: int, Hkv: int, n_splits: int,
     return _scratch[key]
 
 
-def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
-                    vpool: torch.Tensor, block_tables: torch.Tensor,
-                    lengths: torch.Tensor, *,
-                    validate: bool = True) -> torch.Tensor:
-    """q: (B, H, d); kpool/vpool: (N, bs, Hkv, d); block_tables: (B, nb)
-    int32; lengths: (B,) int32 -> (B, H, d).  ``validate=False`` skips
-    ``check_values`` (the caller has run it for these tables)."""
+def _launch(q, kpool, vpool, block_tables, lengths, lse: bool):
+    """One launch on CUDA tensors -> (out, lse (B, H) fp32 or None)."""
     global launch_count
-    _check(q, kpool, vpool, block_tables, lengths)
-    if validate:
-        check_values(block_tables, lengths, kpool.shape[0], kpool.shape[1])
-    if q.device.type == "cpu":
-        return paged_attention_plain(q, kpool, vpool, block_tables, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    from repro_torch.kernels import build, refuse_grad
-
-    refuse_grad("paged_attention", (q, kpool, vpool),
-                "it serves decode, and training attends with "
-                "flash_attention")
+    from repro_torch.kernels import build
 
     if kpool.data_ptr() % ALIGN or vpool.data_ptr() % ALIGN:
         raise ValueError(f"kpool and vpool must start on {ALIGN}-byte "
@@ -190,6 +184,8 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
     n_splits = plan_splits(B, Hkv, block_tables.shape[1] * bs,
                            sms=_sm_count(q.device))
     out = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
+    lse_t = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+             if lse else None)
     strides = (ctypes.c_longlong * 11)(
         q.stride(0), q.stride(1), *kpool.stride()[:3], *vpool.stride()[:3],
         block_tables.stride(0), out.stride(0), out.stride(1))
@@ -200,10 +196,74 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
         err = lib.paged_attention_launch(
             q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            None if lse_t is None else lse_t.data_ptr(),
             part.data_ptr(), counters.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), B, H, Hkv, d, bs,
             n_splits, DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")
     launch_count += 1
-    return out
+    return out, lse_t
+
+
+@torch.library.custom_op("repro_torch::paged_attention", mutates_args=(),
+                         device_types="cuda")
+def _op(q: torch.Tensor, kpool: torch.Tensor, vpool: torch.Tensor,
+        block_tables: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The kernel, no lse: the CUDA implementation launches it."""
+    return _launch(q, kpool, vpool, block_tables, lengths, lse=False)[0]
+
+
+@_op.register_fake
+def _(q, kpool, vpool, block_tables, lengths):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@torch.library.custom_op("repro_torch::paged_attention_lse", mutates_args=(),
+                         device_types="cuda")
+def _lse_op(q: torch.Tensor, kpool: torch.Tensor, vpool: torch.Tensor,
+            block_tables: torch.Tensor, lengths: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel with each (sequence, head)'s lse."""
+    return _launch(q, kpool, vpool, block_tables, lengths, lse=True)
+
+
+@_lse_op.register_fake
+def _(q, kpool, vpool, block_tables, lengths):
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
+
+
+def _run(q, kpool, vpool, block_tables, lengths, validate: bool, lse: bool):
+    _check(q, kpool, vpool, block_tables, lengths)
+    if validate:
+        check_values(block_tables, lengths, kpool.shape[0], kpool.shape[1])
+    args = (q, kpool, vpool, block_tables, lengths)
+    if runs_plain("paged_attention", q):
+        return paged_attention_plain(*args, return_lse=lse)
+    from repro_torch.kernels import refuse_grad
+
+    refuse_grad("paged_attention", (q, kpool, vpool),
+                "it serves decode, and training attends with "
+                "flash_attention")
+    return _lse_op(*args) if lse else _op(*args)
+
+
+def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
+                    vpool: torch.Tensor, block_tables: torch.Tensor,
+                    lengths: torch.Tensor, *,
+                    validate: bool = True) -> torch.Tensor:
+    """q: (B, H, d); kpool/vpool: (N, bs, Hkv, d); block_tables: (B, nb)
+    int32; lengths: (B,) int32 -> (B, H, d).  ``validate=False`` skips
+    ``check_values`` (the caller has run it for these tables)."""
+    return _run(q, kpool, vpool, block_tables, lengths, validate, lse=False)
+
+
+def paged_attention_lse(q: torch.Tensor, kpool: torch.Tensor,
+                        vpool: torch.Tensor, block_tables: torch.Tensor,
+                        lengths: torch.Tensor, *, validate: bool = True):
+    """``paged_attention`` that also returns each (sequence, head)'s
+    natural-log log-sum-exp of its scaled scores over its ``lengths[b]``
+    positions: (out (B, H, d), lse (B, H) fp32), so that outputs over
+    disjoint parts of a sequence merge exactly (the sharded decode)."""
+    return _run(q, kpool, vpool, block_tables, lengths, validate, lse=True)

@@ -14,9 +14,10 @@ import torch
 
 def paged_attention_plain(q: torch.Tensor, kpool: torch.Tensor,
                           vpool: torch.Tensor, block_tables: torch.Tensor,
-                          lengths: torch.Tensor) -> torch.Tensor:
+                          lengths: torch.Tensor, return_lse: bool = False):
     """q: (B, H, d); kpool/vpool: (N, bs, Hkv, d); block_tables: (B, nb);
-    lengths: (B,) -> (B, H, d)."""
+    lengths: (B,) -> (B, H, d); with ``return_lse`` also the scores'
+    natural-log log-sum-exp over the valid positions, (B, H) fp32."""
     B, H, d = q.shape
     _, bs, Hkv, _ = kpool.shape
     bt = block_tables.long()
@@ -28,5 +29,7 @@ def paged_attention_plain(q: torch.Tensor, kpool: torch.Tensor,
     valid = pos[None] < lengths.to(q.device).long()[:, None]   # (B, S')
     s = s.masked_fill(~valid[:, None, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v)
-    return o.reshape(B, H, d).to(q.dtype)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v).reshape(B, H, d).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H)
+    return o

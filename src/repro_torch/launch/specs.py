@@ -5,8 +5,9 @@ The port of ``repro.launch.specs``'s ``batch_shapes`` and
 numbers (drawn with numpy, then moved to the caller's device).
 Modality frontends are stubs: vlm cells get precomputed patch
 embeddings, audio cells precomputed frame embeddings.  ``input_specs``
-(shape-only stand-ins for the dry-run) goes with the dry-run (ROADMAP.md
-queue 1, item 13).
+gives shape-only stand-ins for the dry-run: fake tensors with the
+batch's shapes and dtypes, nothing allocated (the reference's
+``jax.ShapeDtypeStruct``s).
 """
 
 from __future__ import annotations
@@ -49,6 +50,17 @@ def batch_shapes(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, tuple]:
         return _token_shapes(cfg, cell)
     # decode: one new token against a seq_len-sized cache
     return {"tokens": ((B, 1), torch.int32)}
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell,
+                fake_mode=None) -> Dict[str, torch.Tensor]:
+    """{name: a fake CPU tensor of the batch leaf's shape and dtype},
+    made under ``fake_mode`` (a ``FakeTensorMode``; a new one unless
+    given): no memory is allocated, whatever the cell's size."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with fake_mode or FakeTensorMode():
+        return {k: torch.empty(shape, dtype=dt)
+                for k, (shape, dt) in batch_shapes(cfg, cell).items()}
 
 
 def make_batch(cfg: ModelConfig, cell: ShapeCell, seed: int = 0,

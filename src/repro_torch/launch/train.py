@@ -3,8 +3,11 @@
 The port of ``repro.launch.train``, with its flags, plus ``--device``
 (``cuda`` unless named): resume from the latest checkpoint, a retried
 step, a periodic asynchronous save, the deterministic restart-safe data
-pipeline (``data.pipeline.TokenPipeline``).  It trains on one device;
-a mesh and sharding are ROADMAP.md queue 1, item 13.  ``main(argv)``
+pipeline (``data.pipeline.TokenPipeline``).  It trains on one device,
+as the reference's launcher does; the same ``make_train_step`` takes a
+state and batch sharded over a ``launch.mesh`` mesh (DTensors placed by
+``sharding.rules``), and ``chip_smoke.py``'s ``mesh_train`` drives it.
+``main(argv)``
 takes the arguments as a list, so a script can call it in process, and
 returns the final train state, the step it started from and each
 step's loss.

@@ -25,16 +25,15 @@ backward pass as the reference's ``jax.checkpoint``.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import dtensor as dt_lib
 
 
 class EncDecCache(NamedTuple):
@@ -60,7 +59,7 @@ def sinusoid(S: int, D: int) -> np.ndarray:
     return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
 
 
-@functools.lru_cache(maxsize=16)
+@L.device_cache(maxsize=16)
 def _sinusoid_on(S: int, D: int, dtype: torch.dtype, device: torch.device):
     # one host-to-device copy per (shape, dtype, device)
     return torch.as_tensor(sinusoid(S, D), device=device).to(dtype)[None]
@@ -121,12 +120,12 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, causal: bool,
     h = L.make_norm(cfg)(x, p["ln"])
     q, k, v = L.qkv_proj(cfg, p["attn"], h)
     if kc is not None:
-        kc[:, pos] = k[:, 0]
-        vc[:, pos] = v[:, 0]
+        L.write_seq(kc, pos, k, 1)
+        L.write_seq(vc, pos, v, 1)
         o = L.decode_attention(q, kc, vc, pos + 1)
     else:
-        o = flash_ops.flash_attention(q, k, v, causal=causal)
-    return x + o.reshape(*o.shape[:2], -1) @ p["attn"]["wo"], (k, v)
+        o = L.flash_attention(q, k, v, causal=causal)
+    return x + L.settle(o.reshape(*o.shape[:2], -1) @ p["attn"]["wo"]), (k, v)
 
 
 def _cross_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, xk, xv,
@@ -134,18 +133,19 @@ def _cross_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, xk, xv,
     """Pre-LN cross-attention over the encoder's k/v (B, S_enc, H, hd),
     with its residual: the flash kernel (full) over the sequence, or one
     token a sequence (``decode``) through ``layers.decode_attention``."""
-    h = L.make_norm(cfg)(x, p["ln"])
+    h = dt_lib.reduce_grad(L.make_norm(cfg)(x, p["ln"]))
     B, S, _ = h.shape
     q = (h @ p["attn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
     if decode:
         o = L.decode_attention(q, xk, xv, xk.shape[1])
     else:
-        o = flash_ops.flash_attention(q, xk, xv, causal=False)
-    return x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+        o = L.flash_attention(q, xk, xv, causal=False)
+    return x + L.settle(o.reshape(B, S, -1) @ p["attn"]["wo"])
 
 
 def _cross_kv(cfg: ModelConfig, p: Dict, enc_out: torch.Tensor):
     B, Se, _ = enc_out.shape
+    enc_out = dt_lib.reduce_grad(enc_out)
     k = (enc_out @ p["attn"]["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
     v = (enc_out @ p["attn"]["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
     return k, v
@@ -157,7 +157,7 @@ def _mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor):
     """The final norm and the tied head."""
-    x = L.make_norm(cfg)(x, params["embed"]["final_norm"])
+    x = dt_lib.reduce_grad(L.make_norm(cfg)(x, params["embed"]["final_norm"]))
     return x @ params["embed"]["tok"].T.to(x.dtype)
 
 
@@ -185,16 +185,16 @@ def forward_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     x = L.embed(params["embed"]["tok"], tokens).to(dt)
     x = x + _sinusoid_on(S, cfg.d_model, dt, x.device)
     shape = (cfg.n_layers, B, max(max_len or S, S), cfg.n_kv_heads, cfg.hd)
-    ks = torch.zeros(shape, dtype=dt, device=x.device)
-    vs = torch.zeros(shape, dtype=dt, device=x.device)
+    ks = L.zeros_split_as(shape, dt, x, 1)
+    vs = L.zeros_split_as(shape, dt, x, 1)
     xks, xvs = [], []
     for i in range(cfg.n_layers):
         p = L.layer(params["dec"], i)
         x, (k, v) = _self_attn(cfg, p["self"], x, causal=True)
         xk, xv = _cross_kv(cfg, p["cross"], enc_out)
         x = _mlp(cfg, p, _cross_attn(cfg, p["cross"], x, xk, xv))
-        ks[i, :, :S] = k
-        vs[i, :, :S] = v
+        L.write_seq(ks[i], 0, k, 1)
+        L.write_seq(vs[i], 0, v, 1)
         xks.append(xk)
         xvs.append(xv)
     return _logits(cfg, params, x[:, -1:]), EncDecCache(

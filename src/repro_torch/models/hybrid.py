@@ -20,7 +20,6 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import transformer as T
@@ -85,7 +84,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _attn_out(cfg: ModelConfig, p: Dict, x, o):
-    x = x + o.reshape(*o.shape[:2], -1) @ p["attn"]["wo"]
+    x = x + L.settle(o.reshape(*o.shape[:2], -1) @ p["attn"]["wo"])
     h = L.make_norm(cfg)(x, p["ln2"])
     return x + L.mlp_apply(cfg, p["mlp"], h)
 
@@ -102,7 +101,7 @@ def _shared_block_full(cfg: ModelConfig, p: Dict, x, rope):
     """The shared block over a whole sequence; ``rope``: the forward's
     ``layers.rope_tables``.  Returns (x, (k, v))."""
     q, k, v = shared_qkv(cfg, p, x, rope)
-    o = flash_ops.flash_attention(q, k, v, causal=True)
+    o = L.flash_attention(q, k, v, causal=True)
     return _attn_out(cfg, p, x, o), (k, v)
 
 

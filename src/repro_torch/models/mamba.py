@@ -35,6 +35,7 @@ from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.models import layers as L
 from repro_torch.models import opt_flags
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import dtensor as dt_lib
 
 # The leaves that stay fp32 under any parameter dtype, by name.
 FP32_LEAVES = {"mamba1": ("A_log",), "mamba2": ("A_log", "dt_bias")}
@@ -112,7 +113,7 @@ def _mamba1_inputs(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     with dt = softplus(dt_proj(dt_r) + dt_bias) in fp32; Bc and Cc are
     views into the x_proj output."""
     N, R = cfg.ssm_state, cfg.dt_rank_
-    xz = _norm(cfg, p, x) @ p["in_proj"]
+    xz = dt_lib.reduce_grad(_norm(cfg, p, x)) @ p["in_proj"]
     xin, z = torch.chunk(xz, 2, dim=-1)
     u = _silu_as(_causal_conv(xin, p["conv_w"], p["conv_b"], conv_state),
                  x.dtype)
@@ -125,7 +126,42 @@ def _mamba1_inputs(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 def _mamba1_out(p: Dict, x, y, u, z) -> torch.Tensor:
     y = y + u * p["Dskip"].to(x.dtype)
     y = y * _silu_as(z, x.dtype)
-    return x + y @ p["out_proj"]
+    return x + L.settle(y @ p["out_proj"])
+
+
+def selective_scan(u, dt, Bc, Cc, A_log):
+    """The ``mamba_scan`` kernel's wrapper, called on local shards where
+    u is a DTensor (the sharded step): the scan is local over the batch
+    and over ``d_inner``.  A mesh dim that splits u or dt over d_inner
+    splits u, dt, A_log, y and the state there, and each rank's
+    gradients for Bc and Cc (which every d_inner channel reads) are a
+    ``Partial`` sum over it; a mesh dim that splits the batch splits u,
+    dt, Bc, Cc, y and the state, and A_log's gradient is a ``Partial``
+    sum over it."""
+    if not dt_lib.is_dtensor(u):
+        return scan_ops.mamba_scan(u, dt, Bc, Cc, A_log)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    u, dt, Bc, Cc = (dt_lib.settle(t) for t in (u, dt, Bc, Cc))
+    upl, bpl, bgrad, apl, agrad, hpl = [], [], [], [], [], []
+    for i in range(u.device_mesh.ndim):
+        sh = {p.dim % 3 for p in (u.placements[i], dt.placements[i],
+                                  Bc.placements[i]) if p.is_shard()}
+        if 0 in sh:                               # batch
+            upl.append(Shard(0)), bpl.append(Shard(0))
+            bgrad.append(Shard(0)), apl.append(Replicate())
+            agrad.append(Partial()), hpl.append(Shard(0))
+        elif 2 in sh:                             # d_inner
+            upl.append(Shard(2)), bpl.append(Replicate())
+            bgrad.append(Partial()), apl.append(Shard(0))
+            agrad.append(Shard(0)), hpl.append(Shard(1))
+        else:
+            for lst in (upl, bpl, bgrad, apl, agrad, hpl):
+                lst.append(Replicate())
+    y, h = scan_ops.mamba_scan(
+        dt_lib.local_in(u, upl), dt_lib.local_in(dt, upl),
+        dt_lib.local_in(Bc, bpl, bgrad), dt_lib.local_in(Cc, bpl, bgrad),
+        dt_lib.local_in(A_log, apl, agrad))
+    return dt_lib.local_out(y, u, upl), dt_lib.local_out(h, u, hpl)
 
 
 def mamba1_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -141,7 +177,7 @@ def mamba1_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,
             "function from the fp32 mamba_scan kernel's (ROADMAP.md queue "
             "1, item 17)")
     xin, z, u, dt, Bc, Cc = _mamba1_inputs(cfg, p, x, None)
-    y, h_last = scan_ops.mamba_scan(u, dt, Bc, Cc, p["A_log"])
+    y, h_last = selective_scan(u, dt, Bc, Cc, p["A_log"])
     out = _mamba1_out(p, x, y, u, z)
     if return_state:
         return out, (_conv_state(xin, cfg.ssm_conv), h_last)
@@ -191,6 +227,7 @@ def mamba2_params(cfg: ModelConfig, gen: torch.Generator,
 
 
 def _mamba2_proj(p: Dict, res: torch.Tensor):
+    res = dt_lib.reduce_grad(res)
     z, xin = torch.chunk(res @ p["zx_proj"], 2, dim=-1)
     Bc, Cc = torch.chunk(res @ p["bc_proj"], 2, dim=-1)
     dt_r = res @ p["dtp"]
@@ -205,6 +242,42 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     diff = cs[..., :, None] - cs[..., None, :]
     lower = torch.ones((C, C), dtype=torch.bool, device=x.device).tril()
     return diff.masked_fill(~lower, float("-inf"))
+
+
+def _ssd_chunks(dt, dA, uh, bf, cf, C: int, dtype):
+    """The SSD recurrence over chunks of ``C`` steps: dt, dA (B, S, nh)
+    fp32, uh (B, S, nh, P), bf, cf (B, S, N) fp32 -> (y (B, S, nh, P) in
+    ``dtype``, the final state (B, nh, N, P) fp32).  On DTensors it runs
+    on each rank's batch shard (every input split along the batch as a
+    mesh dim splits it, replicated on the others): DTensor's rules for
+    its grouped einsums fail on a head-split shard."""
+    if dt_lib.is_dtensor(dt):
+        from torch.distributed.tensor import Replicate, Shard
+        pl = [Shard(0) if p == Shard(0) else Replicate()
+              for p in uh.placements]
+        y, h = _ssd_chunks(*(dt_lib.local_in(dt_lib.settle(t), pl)
+                             for t in (dt, dA, uh, bf, cf)), C, dtype)
+        return dt_lib.local_out(y, uh, pl), dt_lib.local_out(h, uh, pl)
+    B, S, nh, P = uh.shape
+    h = torch.zeros((B, nh, bf.shape[-1], P), dtype=torch.float32,
+                    device=uh.device)
+    ys = []
+    for c0 in range(0, S, C):
+        sl = slice(c0, min(c0 + C, S))
+        dac, bc, cc = dA[:, sl], bf[:, sl], cf[:, sl]
+        cum = torch.cumsum(dac, dim=1)                            # (B,C,nh)
+        Lmat = torch.exp(_segsum(dac.transpose(1, 2)))            # (B,nh,C,C)
+        cb = torch.einsum("bin,bjn->bij", cc, bc)                 # (B,C,C)
+        du = dt[:, sl, :, None] * uh[:, sl].float()               # (B,C,nh,P)
+        y_diag = torch.einsum("bhij,bij,bjhp->bihp", Lmat, cb, du)
+        # contribution of the carried-in state
+        y_off = torch.einsum("bin,bhnp,bih->bihp", cc, h, torch.exp(cum))
+        # new carry
+        decay_to_end = torch.exp(cum[:, -1:, :] - cum)            # (B,C,nh)
+        h = torch.exp(cum[:, -1])[..., None, None] * h + torch.einsum(
+            "bjn,bjh,bjhp->bhnp", bc, decay_to_end, du)
+        ys.append((y_diag + y_off).to(dtype))
+    return torch.cat(ys, dim=1), h
 
 
 def mamba2_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -226,30 +299,12 @@ def mamba2_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     A = -torch.exp(p["A_log"])                                    # (nh,)
     dA = dt * A                                                   # (B,S,nh)
     uh = u.reshape(B, S, nh, P)
-    bf, cf = Bc.float(), Cc.float()
-
-    h = torch.zeros((B, nh, N, P), dtype=torch.float32, device=x.device)
-    ys = []
-    for c0 in range(0, S, C):
-        sl = slice(c0, min(c0 + C, S))
-        dac, bc, cc = dA[:, sl], bf[:, sl], cf[:, sl]
-        cum = torch.cumsum(dac, dim=1)                            # (B,C,nh)
-        Lmat = torch.exp(_segsum(dac.transpose(1, 2)))            # (B,nh,C,C)
-        cb = torch.einsum("bin,bjn->bij", cc, bc)                 # (B,C,C)
-        du = dt[:, sl, :, None] * uh[:, sl].float()               # (B,C,nh,P)
-        y_diag = torch.einsum("bhij,bij,bjhp->bihp", Lmat, cb, du)
-        # contribution of the carried-in state
-        y_off = torch.einsum("bin,bhnp,bih->bihp", cc, h, torch.exp(cum))
-        # new carry
-        decay_to_end = torch.exp(cum[:, -1:, :] - cum)            # (B,C,nh)
-        h = torch.exp(cum[:, -1])[..., None, None] * h + torch.einsum(
-            "bjn,bjh,bjhp->bhnp", bc, decay_to_end, du)
-        ys.append((y_diag + y_off).to(x.dtype))
-    y = torch.cat(ys, dim=1).reshape(B, S, din)
+    yh, h = _ssd_chunks(dt, dA, uh, Bc.float(), Cc.float(), C, x.dtype)
+    y = yh.reshape(B, S, din)
     y = y + (uh * p["Dskip"].to(x.dtype)[None, None, :, None]).reshape(
         B, S, din)
     y = y * _silu_as(z, x.dtype)
-    out = x + y @ p["out_proj"]
+    out = x + L.settle(y @ p["out_proj"])
     if return_state:
         return out, (_conv_state(xin, cfg.ssm_conv), h)
     return out
@@ -276,4 +331,4 @@ def mamba2_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     y = y + uh * p["Dskip"].float()[None, :, None]
     y = y.reshape(B, 1, din).to(x.dtype)
     y = y * _silu_as(z, x.dtype)
-    return x + y @ p["out_proj"], conv_state, h
+    return x + L.settle(y @ p["out_proj"]), conv_state, h

@@ -49,19 +49,46 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import dtensor as dt
+
+
+def _target_logit(lf: torch.Tensor, safe: torch.Tensor) -> torch.Tensor:
+    """``lf[b, s, safe[b, s]]``.  On DTensor logits split over the vocab
+    (the sharded step's ``lm_head``), each rank picks the label's logit
+    where it falls in its vocab shard and zero elsewhere (a select
+    against a vocab index split as the logits are, no gather of the
+    logits), and the pending sum over the vocab's mesh dims is one
+    all-reduce of a (B, S) fp32 tensor: Megatron's vocab-parallel
+    cross-entropy."""
+    if not dt.is_dtensor(lf):
+        return lf.gather(-1, safe[..., None])[..., 0]
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    V = lf.shape[-1]
+    pl = [p if p.is_shard() and p.dim % lf.ndim == lf.ndim - 1
+          else Replicate() for p in lf.placements]
+    pl = [type(p)(0) if p.is_shard() else p for p in pl]
+    vocab = distribute_tensor(torch.arange(V, device=lf.device_mesh.device_type),
+                              lf.device_mesh, pl, src_data_rank=None)
+    hit = vocab == safe[..., None]
+    return dt.settle(torch.where(hit, lf, torch.zeros_like(lf)).sum(dim=-1))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """fp32 cross-entropy with ignore_index = -1: logits (B, S, V), labels
     (B, S) -> the mean over the labelled positions.  The row max is
-    detached, as the reference's ``stop_gradient``."""
+    detached, as the reference's ``stop_gradient``.
+
+    On DTensor logits split over the vocab (the sharded step) it stays
+    split: the row max and the exp-sum are all-reduces of (B, S) fp32
+    tensors over the vocab's mesh dims, and the label's logit is
+    ``_target_logit``'s; no rank gathers the logits."""
     lf = logits.float()
-    m = lf.amax(dim=-1, keepdim=True).detach()
-    logz = m[..., 0] + torch.log(torch.exp(lf - m).sum(dim=-1))
+    m = dt.settle(lf.amax(dim=-1, keepdim=True)).detach()
+    logz = m[..., 0] + torch.log(dt.settle(torch.exp(lf - m).sum(dim=-1)))
     safe = labels.clamp(min=0).long()
-    ll = lf.gather(-1, safe[..., None])[..., 0] - logz
+    ll = _target_logit(lf, safe) - logz
     mask = (labels >= 0).float()
-    return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+    return dt.settle(-(ll * mask).sum() / mask.sum().clamp(min=1.0))
 
 
 @dataclasses.dataclass(frozen=True)

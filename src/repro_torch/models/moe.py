@@ -16,9 +16,11 @@ the renormalised gates.  Every step keeps the reference's semantics:
     MLP is added where the config has one.
 
 ``moe_apply`` is the composition of ``route``, ``dispatch``,
-``expert_ffn`` and ``combine``, which a profiler times apart.  The
-reference's ``_constrain`` is a sharding hint, a no-op without a mesh;
-it comes with the sharding work (ROADMAP.md queue 1, item 13).
+``expert_ffn`` and ``combine``, which a profiler times apart.
+``_constrain`` is the reference's sharding hint at its four sites (the
+repeated tokens, the dispatch buffer, the experts' output buffer, the
+gathered outputs): with ``moe_local_dispatch`` it pins DTensor
+placements, the identity on plain tensors.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import opt_flags
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import dtensor as dt
 
 
 class Routing(NamedTuple):
@@ -45,6 +49,23 @@ class Routing(NamedTuple):
     pos: torch.Tensor
     keep: torch.Tensor
     C: int
+
+
+def _constrain(x: torch.Tensor, logical) -> torch.Tensor:
+    """The reference's MoE hint: with ``moe_local_dispatch``, DTensor
+    ``x`` redistributed to the logical spec ``logical`` (dispatch
+    buffers expert-split over "model", token tensors batch-split), where
+    "data_batch" is the mesh's batch axes, ("pod", "data") or
+    ("data",).  The identity on plain tensors."""
+    if not opt_flags.FLAGS.moe_local_dispatch or not dt.is_dtensor(x):
+        return x
+    from repro_torch.sharding.rules import batch_axes, placements
+    mesh = x.device_mesh
+    bax = batch_axes(mesh)
+    spec = tuple(bax if a == "data_batch" else a for a in logical)
+    spec = tuple(a if a is None or isinstance(a, tuple)
+                 or a in mesh.mesh_dim_names else None for a in spec)
+    return x.redistribute(mesh, placements(mesh, spec))
 
 
 def moe_params(cfg: ModelConfig, gen: torch.Generator,
@@ -95,13 +116,33 @@ def route(cfg: ModelConfig, p: Dict, xf: torch.Tensor,
 def dispatch(cfg: ModelConfig, r: Routing, xf: torch.Tensor) -> torch.Tensor:
     """The (E, C, D) buffer: each kept assignment's token at its slot,
     zeros elsewhere.  Kept slots are distinct, so each is written once;
-    dropped assignments go to a spare row that is cut off."""
+    dropped assignments go to a spare row that is cut off.  DTensors
+    take an accumulating ``index_put`` instead, with no spare row; it
+    gives the same values, but it sorts its indices on CUDA, and on
+    plain tensors it made ``moe_main``'s dispatch 1.45-2.5x slower and
+    its prefill 8-11 % slower on an H100 (PERF.md)."""
     E, C, K, D = cfg.n_experts, r.C, cfg.experts_per_tok, xf.shape[1]
     flat = r.eidx.reshape(-1) * C + r.pos
     flat = torch.where(r.keep, flat, torch.full_like(flat, E * C))
+    src = _constrain(xf.repeat_interleave(K, dim=0), ("data_batch", None))
+    if dt.is_dtensor(xf):
+        # no spare row: DTensor cannot differentiate the slice that
+        # cuts it off; dropped assignments add zeros to slot 0 instead.
+        # Unpinned (no moe_local_dispatch), the tokens are gathered whole
+        # on every rank, as the reference's note says GSPMD does
+        flat = torch.where(r.keep, flat, 0)
+        src = torch.where(r.keep[:, None], src, 0)
+        if not opt_flags.FLAGS.moe_local_dispatch:
+            flat, src = dt.replicate(flat), dt.replicate(src)
+        buf = xf.new_zeros((E * C, D)).index_put((flat,), src,
+                                                 accumulate=True)
+        buf = buf.view(E, C, D)
+        if not opt_flags.FLAGS.moe_local_dispatch:
+            return dt.replicate(buf)  # its gradient gathered whole too
+        return _constrain(buf, ("model", None, None))
     buf = xf.new_zeros((E * C + 1, D))
-    buf[flat] = xf.repeat_interleave(K, dim=0)
-    return buf[:E * C].view(E, C, D)
+    buf[flat] = src
+    return _constrain(buf[:E * C].view(E, C, D), ("model", None, None))
 
 
 def expert_ffn(cfg: ModelConfig, p: Dict, buf: torch.Tensor) -> torch.Tensor:
@@ -112,7 +153,7 @@ def expert_ffn(cfg: ModelConfig, p: Dict, buf: torch.Tensor) -> torch.Tensor:
         h = F.silu(g.float()).to(buf.dtype) * u
     else:
         h = L.gelu(torch.bmm(buf, p["w_up"]).float()).to(buf.dtype)
-    return torch.bmm(h, p["w_down"])
+    return _constrain(torch.bmm(h, p["w_down"]), ("model", None, None))
 
 
 def combine(cfg: ModelConfig, p: Dict, r: Routing, out_buf: torch.Tensor,
@@ -120,7 +161,9 @@ def combine(cfg: ModelConfig, p: Dict, r: Routing, out_buf: torch.Tensor,
     """Each token's kept experts' outputs, weighted by the gates in the
     activation dtype and summed over K, plus the shared experts."""
     T, K, D = xf.shape[0], cfg.experts_per_tok, xf.shape[1]
-    gathered = out_buf[r.eidx.reshape(-1), torch.where(r.keep, r.pos, 0)]
+    gathered = _constrain(
+        out_buf[r.eidx.reshape(-1), torch.where(r.keep, r.pos, 0)],
+        ("data_batch", None))
     gathered = torch.where(r.keep[:, None], gathered, 0)
     gates = r.gates.reshape(-1).to(xf.dtype)
     y = (gathered * gates[:, None]).reshape(T, K, D).sum(dim=1)
@@ -143,7 +186,7 @@ def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
               decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (B, S, D), aux_loss (fp32 scalar)."""
     B, S, D = x.shape
-    xf = x.reshape(B * S, D)
+    xf = dt.reduce_grad(x).reshape(B * S, D)
     r = route(cfg, p, xf, decode)
     y = combine(cfg, p, r, expert_ffn(cfg, p, dispatch(cfg, r, xf)), xf)
     return y.reshape(B, S, D), aux_loss(cfg, r)

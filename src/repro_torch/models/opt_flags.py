@@ -13,13 +13,15 @@ through every signature.  What each flag does in the port:
 * ``mamba_bf16_scan`` rounds dA and dBu to bf16 in the reference: a
   different function, which ``mamba1_full`` refuses (ROADMAP.md queue
   1, item 17).
-* ``decode_shard_scores``, ``decode_seq_axis`` and
-  ``moe_local_dispatch`` are sharding hints, the identity without a
-  device mesh; the port has no mesh yet (ROADMAP.md queue 1, item 13).
+* ``decode_shard_scores`` and ``decode_seq_axis`` drive
+  ``models/layers.py::_maybe_shard_scores``, and ``moe_local_dispatch``
+  ``models/moe.py::_constrain``: sharding hints that redistribute the
+  sharded step's DTensors as the reference's pin its shardings, and the
+  identity on plain tensors.
 * ``decode_buffered`` and ``decode_buffer_len`` are read only by the
-  reference's dry-run tool (``launch/dryrun.py``), which comes with
-  item 13; ``models/transformer.py``'s buffered decode takes its ring
-  length as an argument.
+  dry-run (``launch/dryrun.py``), as in the reference;
+  ``models/transformer.py``'s buffered decode takes its ring length as
+  an argument.
 """
 
 from __future__ import annotations

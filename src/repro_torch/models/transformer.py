@@ -40,11 +40,11 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import dtensor as dt
 
 FAMILIES = ("dense", "vlm", "moe")
 
@@ -96,6 +96,25 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev, dt = resolve_device(device), L.dtype_of(cfg)
     return KVCache(torch.zeros(shape, dtype=dt, device=dev),
                    torch.zeros(shape, dtype=dt, device=dev), 0)
+
+
+def _new_cache(cfg: ModelConfig, batch: int, max_len: int,
+               like: torch.Tensor) -> KVCache:
+    """``init_kv_cache`` on ``like``'s device; where ``like`` is a
+    DTensor, a DTensor cache on its mesh, placed by the sharding rules'
+    ``cache_specs`` and made shard by shard."""
+    if not dt.is_dtensor(like):
+        return init_kv_cache(cfg, batch, max_len, device=like.device)
+    from torch.distributed.tensor import zeros
+    from repro_torch.sharding import rules
+    mesh = like.device_mesh
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    spec = rules.cache_specs(cfg, mesh, KVCache(
+        torch.empty(shape, device="meta"), torch.empty(shape, device="meta"),
+        0)).k
+    z = lambda: zeros(shape, dtype=L.dtype_of(cfg), device_mesh=mesh,
+                      placements=rules.placements(mesh, spec))
+    return KVCache(z(), z(), 0)
 
 
 def init_buffered_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -172,12 +191,14 @@ def embed_inputs(cfg: ModelConfig, p: Dict, tokens: torch.Tensor,
     if cfg.frontend != "patch_stub":
         raise ValueError(f"{cfg.name} has no patch frontend")
     pe = patch_embeds.to(L.dtype_of(cfg)) @ p["mm_proj"]
+    if dt.is_dtensor(x):  # the projector's columns gathered, as x's
+        pe = dt.to_placements(pe, x.placements)
     return torch.cat([pe, x], dim=1)
 
 
 def lm_logits(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the LM head (the tied embedding where configured)."""
-    x = L.make_norm(cfg)(x, p["final_norm"])
+    x = dt.reduce_grad(L.make_norm(cfg)(x, p["final_norm"]))
     head = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
     return x @ head.to(x.dtype)
 
@@ -205,8 +226,8 @@ def _block(cfg: ModelConfig, p: Dict, x: torch.Tensor, rope):
     norm = L.make_norm(cfg)
     q, k, v = L.qkv_proj(cfg, p["attn"], norm(x, p["ln1"]))
     q, k = L.rotate(q, rope), L.rotate(k, rope)
-    o = flash_ops.flash_attention(q, k, v, causal=True)
-    x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+    o = L.flash_attention(q, k, v, causal=True)
+    x = x + L.settle(o.reshape(B, S, -1) @ p["attn"]["wo"])
     m, aux = _mix(cfg, p, norm(x, p["ln2"]))
     return x + m, aux, k, v
 
@@ -246,13 +267,13 @@ def forward_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     _check_family(cfg)
     x = embed_inputs(cfg, params["embed"], tokens, patch_embeds)
     B, S, _ = x.shape
-    cache = init_kv_cache(cfg, B, max(max_len or S, S), device=x.device)
+    cache = _new_cache(cfg, B, max(max_len or S, S), x)
     positions = torch.arange(S, device=x.device).expand(B, S)
     rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.rope_frac)
     for i in range(cfg.n_layers):
         x, _, k, v = _block(cfg, L.layer(params["blocks"], i), x, rope)
-        cache.k[i, :, :S] = k
-        cache.v[i, :, :S] = v
+        L.write_seq(cache.k[i], 0, k, 1)
+        L.write_seq(cache.v[i], 0, v, 1)
     logits = lm_logits(cfg, params["embed"], x if full_logits else x[:, -1:])
     return logits, cache._replace(length=S)
 
@@ -272,10 +293,10 @@ def block_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, pos: int,
     B = x.shape[0]
     q, k, v = L.qkv_proj(cfg, p["attn"], L.make_norm(cfg)(x, p["ln1"]))
     q, k = L.rotate(q, rope), L.rotate(k, rope)
-    kc[:, pos] = k[:, 0]
-    vc[:, pos] = v[:, 0]
+    L.write_seq(kc, pos, k, 1)
+    L.write_seq(vc, pos, v, 1)
     o = L.decode_attention(q, kc, vc, pos + 1)
-    x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+    x = x + L.settle(o.reshape(B, 1, -1) @ p["attn"]["wo"])
     return _mix_residual(cfg, p, x, decode=True)
 
 
@@ -321,7 +342,7 @@ def forward_decode_buffered(cfg: ModelConfig, params: Dict,
         ring = L.attention_partial(q, cache.bk[i], cache.bv[i],
                                    kv_len=cache.buf_len + 1)
         o = L.merge_partials([base, ring]).to(x.dtype)
-        x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+        x = x + L.settle(o.reshape(B, 1, -1) @ p["attn"]["wo"])
         x = _mix_residual(cfg, p, x, decode=True)
     return (lm_logits(cfg, params["embed"], x),
             cache._replace(buf_len=cache.buf_len + 1))
@@ -335,8 +356,8 @@ def commit_buffer(cfg: ModelConfig, cache: BufferedKVCache
     R = cache.bk.shape[2]
     lo = cache.base_len
     _check_room("commit_buffer", lo + R, cache.k.shape[3])
-    cache.k[:, :, :, lo:lo + R] = cache.bk.transpose(2, 3)
-    cache.v[:, :, :, lo:lo + R] = cache.bv.transpose(2, 3)
+    L.write_seq(cache.k, lo, cache.bk.transpose(2, 3), 3)
+    L.write_seq(cache.v, lo, cache.bv.transpose(2, 3), 3)
     return cache._replace(base_len=lo + R, buf_len=0)
 
 
@@ -388,6 +409,6 @@ def forward_decode_paged(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         vpool[i].index_put_((sid, soff), v)
         o = paged_ops.paged_attention(q[:, 0], kpool[i], vpool[i],
                                       block_tables, ctx, validate=False)
-        x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+        x = x + L.settle(o.reshape(B, 1, -1) @ p["attn"]["wo"])
         x = _mix_residual(cfg, p, x, decode=True)
     return lm_logits(cfg, params["embed"], x), kpool, vpool

@@ -4,7 +4,9 @@ stochastic-rounding gradient compression.
 The port of ``repro.training.optim``: the same config, state and fp32
 update, moments kept in ``moment_dtype``.  ``adamw_update`` returns new
 tensors (the inputs are left as they are), computed under
-``torch.no_grad()``; the step count is a 0-d int32 tensor on the params'
+``torch.no_grad()``; on DTensor params (the sharded step) each leaf is
+updated on its moments' placements (ZeRO-1) and its new value gathered
+back to the param's own; the step count is a 0-d int32 tensor on the params'
 device, so the schedule and bias corrections never read the device
 from the host.  ``compress_int8`` takes an explicit ``torch.Generator``
 in place of a jax key.
@@ -18,6 +20,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import dtensor as dt
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -65,8 +68,11 @@ def _schedule(oc: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    """sqrt of the sum of every leaf's squares, in fp32.  On DTensor
+    leaves each leaf's sum of squares is all-reduced over the mesh dims
+    that split it, so the norm is one replicated scalar, the same on
+    every rank."""
+    return torch.sqrt(sum(dt.settle(torch.sum(torch.square(x.float())))
                           for x in _leaves(tree)))
 
 
@@ -94,13 +100,18 @@ def adamw_update(params: Any, grads: Any, state: OptState,
     mdt = _DTYPES[oc.moment_dtype]
 
     def upd(p, g, m, v):
+        p0 = p
+        if dt.is_dtensor(p):  # on the moments' (ZeRO-1) placements
+            p, g = dt.to_placements(p, m.placements), \
+                dt.to_placements(g, m.placements)
         gf = g.float()
         m32 = m.float() * b1 + gf * (1 - b1)
         v32 = v.float() * b2 + torch.square(gf) * (1 - b2)
         delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + oc.eps) \
             + oc.weight_decay * p.float()
-        return ((p.float() - lr * delta).to(p.dtype), m32.to(mdt),
-                v32.to(mdt))
+        new_p = dt.to_placements((p.float() - lr * delta).to(p.dtype),
+                                 getattr(p0, "placements", None))
+        return new_p, m32.to(mdt), v32.to(mdt)
 
     outs = [upd(p, g, m, v) for p, g, m, v in zip(
         _leaves(params), _leaves(grads), _leaves(state.mu),

@@ -146,3 +146,31 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take():
         pops.paged_attention(q, pool, pool, bt + 6, lens)
     with pytest.raises(ValueError):
         pops.paged_attention(q, pool, pool, bt, lens * 13)
+
+
+@pytest.mark.parametrize("Hkv", [1, 2])
+def test_paged_lse_is_the_log_sum_exp_and_merges_two_parts(Hkv):
+    """``paged_attention_lse``'s lse is each head's log-sum-exp over its
+    valid positions, and two calls over disjoint parts of each sequence
+    (as the sharded decode makes them) merge by it into one call."""
+    rng = np.random.default_rng(3)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+    B, H, d, S, n = 3, 4, 32, 24, 19
+    q, kc, vc = t(B, H, d), t(B, S, Hkv, d), t(B, S, Hkv, d)
+    bt = torch.arange(B, dtype=torch.int32)[:, None]
+    full = lambda m: torch.full((B,), m, dtype=torch.int32)
+    o, lse = pops.paged_attention_lse(q, kc, vc, bt, full(n))
+    assert torch.equal(o, pops.paged_attention(q, kc, vc, bt, full(n)))
+    k = kc[:, :n].double().repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q.double(), k) / d ** 0.5
+    assert float((lse - torch.logsumexp(s, -1)).abs().max()) < 1e-5
+    cut = 8
+    o1, l1 = pops.paged_attention_lse(q, kc[:, :cut].contiguous(),
+                                      vc[:, :cut].contiguous(), bt, full(cut))
+    o2, l2 = pops.paged_attention_lse(q, kc[:, cut:].contiguous(),
+                                      vc[:, cut:].contiguous(), bt,
+                                      full(n - cut))
+    m = torch.maximum(l1, l2)
+    w1, w2 = torch.exp(l1 - m), torch.exp(l2 - m)
+    merged = (o1 * w1[..., None] + o2 * w2[..., None]) / (w1 + w2)[..., None]
+    assert float((merged - o).abs().max()) < 2e-6
