@@ -17,7 +17,7 @@ started together):
   kernels held at tolerance 0 against their plain versions and, at one
   capacity a trace, against the port's pure-Python policy zoo; it prints
   the miss ratios, Eq. 1 against Clock and the headline gap to S3-FIFO;
-* the paged serving path: ``granite-3-8b`` at full width, 20 of its 40
+* the paged serving path: ``granite-3-8b`` at full width, 10 of its 40
   layers (random bf16 weights from a seeded generator) behind the
   continuous-batching ``ServingEngine``, prefill through the
   ``flash_attention`` kernel and decode through ``paged_attention``,
@@ -90,7 +90,13 @@ started together):
   state checkpointed and restored into a plain state bit for bit;
 * the serving launcher: ``launch.serve.main`` on olmo-1b at its
   published size, 8 requests and a live pool shrink, every completion
-  held to a teacher-forced prefill.
+  held to a teacher-forced prefill;
+* the example scripts and tools as a user runs them (``examples/torch/``,
+  ``tools/obsreport_torch.py``): the policy explorer's Clock2Q+ cross-
+  check through ``cache_sim``, ``serve_paged`` (every completion held to
+  a teacher-forced prefill), ``quickstart --smoke``, ``train_100m`` at
+  its published size with a resumed rerun, and the incident timelines of
+  the chaos pools.
 
 Each phase prints one JSON line.  Then come the ``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` gives them, and the result
@@ -192,8 +198,8 @@ WGMMA_KV_TILE = 128     # flash_attention.cu kBN: KV rows per bf16 tile
 SERVE = dict(block_size=16, hbm_blocks=1024, max_batch=8,
              max_blocks_per_seq=160)
 # serve_main (and chaos_path on its model): granite-3-8b at full width,
-# 20 of its 40 layers, for the script's time; dense_generate runs all 40
-SERVE_LAYERS = 20
+# 10 of its 40 layers, for the script's time; dense_generate runs all 40
+SERVE_LAYERS = 10
 # the script's time: the depth of two earlier paths cut, every kernel and
 # gate kept (zamba2's shared block still runs 4 times a pass)
 MOE_LAYERS = 8              # moe_main: olmoe-1b-7b, 16 layers -> 8
@@ -1317,7 +1323,9 @@ def chaos_path(dev, served):
     round plus once for ``cache_mrc``, both attention kernels launched,
     the journals and the snapshot give the live bytes back.  Reported:
     the requests whose tokens equal serve_main's, and at each first
-    divergence the top-2 margin of a teacher-forced prefill."""
+    divergence the top-2 margin of a teacher-forced prefill.  Returns
+    the record, the launches and the pool's obs snapshot (JSON), which
+    ``examples_main`` renders."""
     import shutil
     import tempfile
     from repro_torch import faults as F
@@ -1354,6 +1362,7 @@ def chaos_path(dev, served):
                         cache_sim=cops.launch_count)
         times.stop()
         report = chaos_report(pool, times, mrc_ms)
+        snap_json = pool.obs_snapshot().to_json()
         by_id = {c.req_id: c for c in outs}
         done = [c for c in outs if c.status == "completed"]
         require(len(done) == 32 and all(len(c.tokens) == MAX_NEW and all(
@@ -1423,7 +1432,7 @@ def chaos_path(dev, served):
         shutil.rmtree(jdir, ignore_errors=True)
     del eng
     torch.cuda.empty_cache()
-    return phase, launches
+    return phase, launches, snap_json
 
 
 def chaos_consistency(dev):
@@ -1436,7 +1445,8 @@ def chaos_consistency(dev):
     equal request for request, and every token must match a
     teacher-forced prefill, near ties excepted and reported; the tuner's
     rounds must equal the plain sweep's.  Then ``chaos_rewarm``: the
-    same storm with no standby, reported under ``rewarm``."""
+    same storm with no standby, reported under ``rewarm``.  Returns the
+    record and the rewarmed pool's obs snapshot (JSON)."""
     import shutil
     import tempfile
     from repro_torch import faults as F
@@ -1500,7 +1510,7 @@ def chaos_consistency(dev):
         times.stop()
         shutil.rmtree(jdir, ignore_errors=True)
     del eng
-    rewarm = chaos_rewarm(api, params, reqs, twin_out, dict(
+    rewarm, rewarm_snap = chaos_rewarm(api, params, reqs, twin_out, dict(
         chaos_knobs(F, k, lookups, None), replicate=False), serve, sched,
         dev)
     rec = dict(phase="chaos_consistency", model=cfg.name, dtype=cfg.dtype,
@@ -1512,7 +1522,7 @@ def chaos_consistency(dev):
                **report, rewarm=rewarm, seconds=time.perf_counter() - t0)
     del params, api
     torch.cuda.empty_cache()
-    return rec
+    return rec, rewarm_snap
 
 
 def chaos_rewarm(api, params, reqs, twin_out, knobs, serve, sched, dev):
@@ -1526,7 +1536,8 @@ def chaos_rewarm(api, params, reqs, twin_out, knobs, serve, sched, dev):
     fault-free twin's, the first divergences, and the teacher-forced
     mismatches.  The rewarm gives readmitted keys new slots while the
     live sequences' block tables keep the old ones, as the reference's
-    does, so tokens may leave the twin's (ROADMAP.md queue 3)."""
+    does, so tokens may leave the twin's (ROADMAP.md queue 3).  Returns
+    the record and the pool's obs snapshot (JSON)."""
     from repro_torch.faults import journal as fj
     from repro_torch.serving.engine import ServingEngine
 
@@ -1565,8 +1576,9 @@ def chaos_rewarm(api, params, reqs, twin_out, knobs, serve, sched, dev):
                tokens_equal_twin=len(reqs) - len(differ),
                first_divergences=differ, positions_compared=compared,
                mismatches=len(mismatches), near_ties=ties)
+    snap_json = eng.pool.obs_snapshot().to_json()
     del eng
-    return rec
+    return rec, snap_json
 
 
 # bf16 flash_attention shapes timed: serve_main's prefill at S 2048, and
@@ -4615,6 +4627,193 @@ def serve_launch(dev):
                 seconds=time.perf_counter() - t0), launches
 
 
+TRAIN_100M_STEPS = (8, 12)  # examples_main: 8 steps, then a rerun to 12
+
+
+def run_script(path: str, argv, **kw):
+    """``main(argv, **kw)`` of the script at ``path`` (in the checkout),
+    its standard output captured: (its return value, the text)."""
+    import contextlib
+    import io
+
+    name = "script_" + pathlib.Path(path).stem
+    mod = _load_module(os.path.join(ROOT, path), name)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv, **kw)
+    return out, buf.getvalue()
+
+
+def incident_check(snap_json: str, failovers, phase: str) -> dict:
+    """``tools/obsreport_torch.py --incidents`` on a chaos pool's
+    snapshot, every retained incident shown: the timeline must name each
+    failover's shard loss and, by its kind, its promotion or its
+    rewarm."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="obs-")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(snap_json)
+        n_events = len(json.loads(snap_json)["events"])
+        rc, text = run_script("tools/obsreport_torch.py",
+                              [path, "--incidents", "--events",
+                               str(n_events)])
+    finally:
+        os.unlink(path)
+    require(rc == 0 and failovers, f"examples_main: obsreport_torch on "
+                                   f"{phase} (rc {rc}, {failovers})")
+    lines = text.splitlines()
+    want = []
+    for f in failovers:
+        sid = f["shard"]
+        want += [f"shard {sid} LOST", f"shard {sid} PROMOTED from standby"
+                 if f["kind"] == "promote" else f"shard {sid} rewarmed"]
+    shown = [next((ln.strip() for ln in lines if w in ln), None)
+             for w in want]
+    require(all(shown), f"examples_main: {phase}'s incident timeline lacks "
+                        f"{[w for w, s in zip(want, shown) if not s]}")
+    return dict(timeline_lines=len(lines), header=lines[0], shown=shown)
+
+
+def examples_main(dev, incidents: dict):
+    """The port's example scripts and ``tools/obsreport_torch.py`` as a
+    user runs them, each on the card by default (their ``main(argv)``):
+    ``cache_explorer --engine-check`` at its defaults (w01-skewed's
+    metadata trace, four policies at 1, 5 and 10 %), Clock2Q+ replayed
+    through ``cache_sim`` and held to the zoo; ``serve_paged`` (reduced
+    granite-3-8b, 28 blocks shrunk to 14), every completion held to
+    ``teacher_forced``; ``quickstart --smoke`` (reduced olmo-1b, three
+    steps, a checkpoint restored with its digests verified);
+    ``train_100m`` at its published size (124M-class, fp32, seq 128,
+    batch 4), 8 steps into a temporary checkpoint directory and a rerun
+    to 12 that must resume at step 8; and the incident timelines of the
+    chaos pools (``incidents``: phase -> (snapshot JSON, failovers)).
+    Each example's kernels must have launched."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels.cache_sim import ops as cops
+
+    t0 = time.perf_counter()
+    rec, launches = dict(phase="examples_main"), {}
+
+    # cache_explorer: the zoo's table, the engine's replay on the card
+    t1 = time.perf_counter()
+    cops.launch_count = 0
+    out, text = run_script("examples/torch/cache_explorer.py",
+                           ["--engine-check"])
+    launches["cache_explorer"] = dict(cache_sim=cops.launch_count)
+    mrs = [v for _, _, row in out["rows"] for v in row.values()]
+    require(len(out["rows"]) == 3 and len(mrs) == 12 and all(
+        0.0 <= v <= 1.0 for v in mrs), f"cache_explorer: rows {out['rows']}")
+    require(out["check"] == "MATCH" and text.rstrip().endswith("MATCH"),
+            f"cache_explorer: engine cross-check {out['check']}")
+    require(cops.launch_count > 0, "cache_explorer: cache_sim never launched")
+    rec["cache_explorer"] = dict(
+        argv=["--engine-check"], requests=len(out["trace"]),
+        table=text.splitlines()[1:5], check=text.splitlines()[-1],
+        seconds=time.perf_counter() - t1)
+
+    # serve_paged: both phases, every token against a teacher-forced prefill
+    t1 = time.perf_counter()
+    _reset_train_counts()
+    out, text = run_script("examples/torch/serve_paged.py", [])
+    n = _train_counts()
+    launches["serve_paged"] = {k: n[k] for k in ("flash_attention",
+                                                 "paged_attention")}
+    done = out["phase1"] + out["phase2"]
+    by_id = {c.req_id: c for c in done}
+    reqs = out["requests"]
+    require(len(out["phase1"]) == len(out["phase2"]) == 4 and len(by_id) == 8
+            and all(c.status == "completed" and len(c.tokens) == 8
+                    for c in done), "serve_paged: a request did not complete")
+    require(out["capacity2"] == 14, f"serve_paged: phase 2 ran on "
+                                    f"{out['capacity2']} blocks, not 14")
+    require(n["flash_attention"] > 0 and n["paged_attention"] > 0,
+            f"serve_paged: launches {n}")
+    compared, mismatches, ties = teacher_forced(out["api"], out["params"],
+                                                reqs, by_id, dev)
+    require(not mismatches, f"serve_paged: served tokens != teacher-forced "
+                            f"prefill tokens: {mismatches}")
+    rec["serve_paged"] = dict(
+        completed=len(by_id), phase2_blocks=out["capacity2"],
+        pool1=dataclasses.asdict(out["stats1"]),
+        pool2=dataclasses.asdict(out["stats2"]), flows2=out["flows2"],
+        positions_compared=compared, mismatches=0, near_ties=ties,
+        near_tie_margin=NEAR_TIE, seconds=time.perf_counter() - t1)
+    del out, done, by_id
+
+    # quickstart --smoke: three steps on the flash kernels, a restore
+    t1 = time.perf_counter()
+    _reset_train_counts()
+    out, text = run_script("examples/torch/quickstart.py", ["--smoke"])
+    n = _train_counts()
+    shutil.rmtree(out["ckpt_dir"], ignore_errors=True)
+    launches["quickstart"] = {k: n[k] for k in ("flash_attention",
+                                                "flash_attention_bwd")}
+    require(len(out["losses"]) == 3 and all(
+        math.isfinite(x) for x in out["losses"]),
+        f"quickstart: losses {out['losses']}")
+    require("restore+verify OK" in text, "quickstart: no restore+verify OK")
+    require(n["flash_attention"] > 0 and n["flash_attention_bwd"] > 0,
+            f"quickstart: launches {n}")
+    rec["quickstart"] = dict(argv=["--smoke"], losses=out["losses"],
+                             restore_verify=True,
+                             seconds=time.perf_counter() - t1)
+    del out
+
+    # train_100m: 8 steps at its published size, then a resumed rerun
+    t1 = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="train-100m-")
+    try:
+        _reset_train_counts()
+        first, _ = run_script("examples/torch/train_100m.py", [
+            "--steps", str(TRAIN_100M_STEPS[0]), "--ckpt", ckpt])
+        again, text = run_script("examples/torch/train_100m.py", [
+            "--steps", str(TRAIN_100M_STEPS[1]), "--ckpt", ckpt])
+        n = _train_counts()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches["train_100m"] = {k: n[k] for k in ("flash_attention",
+                                                "flash_attention_bwd")}
+    losses = first["losses"] + again["losses"]
+    require(first["start"] == 0 and len(losses) == TRAIN_100M_STEPS[1]
+            and all(math.isfinite(x) for x in losses),
+            f"train_100m: start {first['start']}, losses {losses}")
+    require(again["start"] == TRAIN_100M_STEPS[0] and
+            f"resumed at step {TRAIN_100M_STEPS[0]}" in text,
+            f"train_100m: the rerun started at {again['start']}")
+    require(n["flash_attention"] > 0 and n["flash_attention_bwd"] > 0,
+            f"train_100m: launches {n}")
+    step_ms = [1e3 * s for s in first["step_s"]]
+    p50 = statistics.median(step_ms[1:])   # the first step warms up
+    rec["train_100m"] = dict(
+        steps=TRAIN_100M_STEPS, seq=128, batch=4,
+        tokens_per_step=first["tokens_per_step"], losses=losses,
+        step_ms=step_ms, resumed_step_ms=[1e3 * s for s in again["step_s"]],
+        step_ms_p50_after_first=p50,
+        tokens_per_s=first["tokens_per_step"] / (p50 / 1e3),
+        checkpoints=again["checkpoints"], seconds=time.perf_counter() - t1)
+    del first, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # obsreport_torch --incidents on the chaos pools' snapshots
+    t1 = time.perf_counter()
+    rec["obsreport_torch"] = {
+        phase: incident_check(snap, fos, phase)
+        for phase, (snap, fos) in incidents.items()}
+    rec["obsreport_torch"]["seconds"] = time.perf_counter() - t1
+
+    total = {}
+    for per in launches.values():
+        for k, v in per.items():
+            total[k] = total.get(k, 0) + v
+    rec.update(launches=total, launches_by_script=launches,
+               seconds=time.perf_counter() - t0)
+    return rec, total
+
+
 SHARD_COUNTS = (2, 4, 8)    # benchmarks/shard.py::SHARD_COUNTS
 THREADS = (1, 2, 4, 8)      # benchmarks/shard.py::THREADS
 ORACLE_PREFIX = 1 << 18     # shard_path: requests held against the host service
@@ -5132,12 +5331,16 @@ def main() -> int:
     emit(check)
     serve, serve_launches, med_lengths, served = serve_main(dev)
     emit(serve)
-    chaos, chaos_launches = chaos_path(dev, served)
+    chaos, chaos_launches, chaos_snap = chaos_path(dev, served)
     emit(chaos)
     del served
     torch.cuda.empty_cache()
     emit(serve_consistency(dev))
-    emit(chaos_consistency(dev))
+    consistency, rewarm_snap = chaos_consistency(dev)
+    emit(consistency)
+    incidents = dict(chaos_path=(chaos_snap, chaos["failovers"]),
+                     chaos_rewarm=(rewarm_snap,
+                                   consistency["rewarm"]["failovers"]))
     timing = attn_kernel_time(dev, med_lengths)
     emit(timing)
     pt, ft, fh = timing["paged"], timing["flash"], timing["flash_hybrid"]
@@ -5221,6 +5424,11 @@ def main() -> int:
     emit(meshed)
     launched, launch_launches = serve_launch(dev)
     emit(launched)
+    # -- the example scripts and the tools, as a user runs them ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples, example_launches = examples_main(dev, incidents)
+    emit(examples)
 
     family_launches = dict(moe_main=moe_launches, moe_wide=wide_launches,
                            vlm_main=vlm_launches,
@@ -5229,7 +5437,8 @@ def main() -> int:
                            train_main=train_launches,
                            ssm_train_main=ssm_train_launches,
                            mesh_train=mesh_launches,
-                           serve_launch=launch_launches)
+                           serve_launch=launch_launches,
+                           examples_main=example_launches)
     by_family = {k: {p: n[k] for p, n in family_launches.items()}
                  for k in ("flash_attention", "paged_attention")}
 
@@ -5238,12 +5447,14 @@ def main() -> int:
         source="src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu",
         replaces="src/repro/kernels/cache_sim/cache_sim.py:46",
         launches=launches + cmp["launches"]["cache_sim"] + shard_launches
-        + tuner_launches["cache_sim"] + chaos_launches["cache_sim"],
+        + tuner_launches["cache_sim"] + chaos_launches["cache_sim"]
+        + example_launches["cache_sim"],
         launches_by_path=dict(main_path=launches,
                               compare_path=cmp["launches"]["cache_sim"],
                               shard_path=shard_launches,
                               tuner_path=tuner_launches["cache_sim"],
-                              chaos_path=chaos_launches["cache_sim"]),
+                              chaos_path=chaos_launches["cache_sim"],
+                              examples_main=example_launches["cache_sim"]),
         max_abs_err=max_abs_err, ms=kt["ms"],
         plain_ms=plain_ms, bound_ms=kt["bound_ms"], bound_by=kt["bound_by"],
         library_ms=None,
@@ -5313,10 +5524,12 @@ def main() -> int:
              replaces="no Pallas kernel: XLA's autodiff of "
                       "src/repro/models/layers.py:128 attention",
              launches=train_launches["flash_attention_bwd"]
-             + mesh_launches["flash_attention_bwd"],
+             + mesh_launches["flash_attention_bwd"]
+             + example_launches["flash_attention_bwd"],
              launches_by_path=dict(
                  train_main=train_launches["flash_attention_bwd"],
-                 mesh_train=mesh_launches["flash_attention_bwd"]),
+                 mesh_train=mesh_launches["flash_attention_bwd"],
+                 examples_main=example_launches["flash_attention_bwd"]),
              max_abs_err=bwd_check["max_abs_err"],
              max_limit_use=bwd_check["max_limit_use"],
              max_fp32_limit_use=bwd_check["max_fp32_limit_use"],

@@ -12,7 +12,6 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.engine.clock2qplus import step
 from repro_torch.kernels.lanes import replay_steps
 
 
@@ -24,4 +23,6 @@ def cache_sim_plain(state: Dict[str, torch.Tensor], trace: torch.Tensor,
     per lane); keys < 0 are no-op padding.  Returns the per-request hits
     (L, T) bool for ``out="hits"``, or the per-lane hit counts (L,)
     int64 for ``out="counts"``."""
+    # lazy: the kernels are the lowest layer (tools/check_layering_torch.py)
+    from repro_torch.core.engine.clock2qplus import step
     return replay_steps(step, state, trace, out)

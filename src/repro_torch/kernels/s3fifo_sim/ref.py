@@ -12,7 +12,6 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.engine.s3fifo import step
 from repro_torch.kernels.lanes import replay_steps
 
 
@@ -21,4 +20,6 @@ def s3fifo_sim_plain(state: Dict[str, torch.Tensor], trace: torch.Tensor,
     """Replay ``trace`` ((T,) or (L, T); keys < 0 are no-op padding)
     through every lane of ``state``, in place.  Returns hits (L, T) bool
     for ``out="hits"``, or per-lane hit counts (L,) int64."""
+    # lazy: the kernels are the lowest layer (tools/check_layering_torch.py)
+    from repro_torch.core.engine.s3fifo import step
     return replay_steps(step, state, trace, out)

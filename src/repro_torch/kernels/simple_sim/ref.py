@@ -13,10 +13,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.engine.simple import clock_step, fifo_step, lru_step
 from repro_torch.kernels.lanes import replay_steps
-
-STEPS = dict(fifo=fifo_step, clock=clock_step, lru=lru_step)
 
 
 def simple_sim_plain(family: str, state: Dict[str, torch.Tensor],
@@ -25,4 +22,8 @@ def simple_sim_plain(family: str, state: Dict[str, torch.Tensor],
     through every lane of the ``family`` (``fifo``, ``clock`` or ``lru``)
     state, in place.  Returns hits (L, T) bool for ``out="hits"``, or
     per-lane hit counts (L,) int64."""
-    return replay_steps(STEPS[family], state, trace, out)
+    # lazy: the kernels are the lowest layer (tools/check_layering_torch.py)
+    from repro_torch.core.engine import simple
+    step = dict(fifo=simple.fifo_step, clock=simple.clock_step,
+                lru=simple.lru_step)[family]
+    return replay_steps(step, state, trace, out)

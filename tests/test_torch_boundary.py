@@ -36,12 +36,40 @@ def _forbidden(module: str) -> bool:
     return top in ("repro", "jax", "jaxlib")
 
 
+# the port's entry points beside the package: its example scripts and
+# tools (the reference's share the directories, not the names)
+ENTRY_POINTS = sorted((REPO / "examples" / "torch").rglob("*.py")) + \
+    sorted((REPO / "tools").glob("*_torch.py"))
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [REPO / "chip_smoke.py"],
+                         [REPO / "chip_smoke.py"] + ENTRY_POINTS,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_repro_or_jax_import_in_the_source(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
     assert bad == [], f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_the_scan_covers_the_examples_and_tools():
+    walked = {p.relative_to(REPO).as_posix() for p in ENTRY_POINTS}
+    assert walked == {
+        "examples/torch/cache_explorer.py", "examples/torch/quickstart.py",
+        "examples/torch/serve_paged.py", "examples/torch/train_100m.py",
+        "tools/check_layering_torch.py", "tools/obsreport_torch.py"}
+
+
+def test_loading_the_entry_points_loads_neither_jax_nor_repro():
+    code = (
+        "import sys, importlib.util\n"
+        f"sys.path[:0] = [{str(REPO / 'src')!r}]\n"
+        f"for i, p in enumerate({[str(p) for p in ENTRY_POINTS]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'e{i}', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   capture_output=True, text=True, timeout=120, cwd=REPO)
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
