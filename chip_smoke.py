@@ -202,7 +202,7 @@ SERVE = dict(block_size=16, hbm_blocks=1024, max_batch=8,
 SERVE_LAYERS = 10
 # the script's time: the depth of two earlier paths cut, every kernel and
 # gate kept (zamba2's shared block still runs 4 times a pass)
-MOE_LAYERS = 8              # moe_main: olmoe-1b-7b, 16 layers -> 8
+MOE_LAYERS = 4              # moe_main: olmoe-1b-7b, 16 layers -> 4
 HYBRID_LAYERS = 24          # hybrid_main: zamba2-2.7b, 54 layers -> 24
 TOKEN_BUDGET = 16_384       # prefill tokens one scheduler tick may commit
 PREFIX_LEN, N_PREFIXES = 1024, 4
@@ -1019,13 +1019,36 @@ def vlm_main(dev):
     return phase, launches
 
 
+def hidden_errors(cfg, params, host, toks, pe, dev) -> list:
+    """The hidden state after the embedding and after each layer of a
+    patch prefill (``transformer.forward_prefill``'s steps), ``params`` on
+    ``dev`` against ``host`` on the CPU: each max |err| over max |x|."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    runs = []
+    for p, d in ((params, dev), (host, torch.device("cpu"))):
+        x = T.embed_inputs(cfg, p["embed"], torch.as_tensor(toks, device=d),
+                           torch.from_numpy(pe).to(d))
+        B, S, _ = x.shape
+        rope = L.rope_tables(torch.arange(S, device=d).expand(B, S), cfg.hd,
+                             cfg.rope_theta, cfg.rope_frac)
+        xs = [x]
+        for i in range(cfg.n_layers):
+            xs.append(T._block(cfg, L.layer(p["blocks"], i), xs[-1],
+                               rope)[0])
+        runs.append(xs)
+    return [_rel_err(a.cpu(), b) for a, b in zip(*runs)]
+
+
 def vlm_consistency(dev):
     """llava-next-mistral-7b at full width in fp32, depth cut to 2: one
     prompt of 576 numpy-seeded patch embeddings + 128 tokens through the
     card's path (the flash kernel) and, with the same params carried
     through numpy, through the port on the CPU (plain attention); the
     logits within 1e-4 of max |logit|, the KV cache within 1e-4 of its
-    max |x|."""
+    max |x|.  Where they are not, each layer's hidden state on the card
+    against the CPU's (``hidden_errors``) is printed first."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import (build, params_from_numpy,
                                           params_to_numpy)
@@ -1054,6 +1077,10 @@ def vlm_consistency(dev):
     err = _rel_err(got.cpu(), want)
     kv_err = max(_rel_err(gcache.k.cpu(), wcache.k),
                  _rel_err(gcache.v.cpu(), wcache.v))
+    if not (err <= VLM_TOL and kv_err <= VLM_TOL):  # where it arose, first
+        emit(dict(phase="vlm_consistency_layers", logit_rel_err=err,
+                  kv_rel_err=kv_err, hidden_rel_err=hidden_errors(
+                      cfg, params, host, toks, pe, dev)))
     require(err <= VLM_TOL and kv_err <= VLM_TOL,
             f"vlm_consistency: card != CPU (logits rel err {err}, KV "
             f"{kv_err}; tolerance {VLM_TOL})")
@@ -2879,8 +2906,10 @@ def scan_previous(dev, tree: str):
     tree runs its own forward with its states (the two trees' cadences may
     differ) and then its own backward, which alone is timed (the kernel
     and the wrapper's sums), and each tree's five gradients are held to
-    the plain backward on fp32 copies (max and mean |err|).  A tree whose
-    scan has no backward is timed on the forward alone."""
+    the plain backward on fp32 copies (max and mean |err|).  ``bit_equal``:
+    the two trees' outputs (the backward's: its states too) equal bit for
+    bit.  A tree whose scan has no backward is timed on the forward
+    alone."""
     from repro_torch.kernels.mamba_scan import ops as sops
     from repro_torch.kernels.mamba_scan.ref import (
         mamba_scan_bwd_plain, mamba_scan_plain,
@@ -2901,12 +2930,14 @@ def scan_previous(dev, tree: str):
                previous_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
                plan=sops.scan_plan(*SCAN_MAIN)._asdict(),
                l2_flush_bytes=flush.numel() * 4)
-    for k in fns:
-        y, h = fns[k]()
+    outs = {k: fns[k]() for k in fns}
+    for k, (y, h) in outs.items():
         dy = (y.float() - y0).abs()
         rec[k + "_err"] = dict(y_max=float(dy.max()), y_mean=float(dy.mean()),
                                h_last_max=float((h - h0).abs().max()))
-    del y0, h0, ins
+    rec["bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+        outs["previous"], outs["present"]))
+    del y0, h0, ins, outs
     if not hasattr(old, "mamba_scan_bwd"):
         return rec
     rng = np.random.default_rng(26)
@@ -2927,13 +2958,16 @@ def scan_previous(dev, tree: str):
         previous_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
         states_bytes={k: int(v.numel()) * 4 for k, v in states.items()},
         plan=sops.bwd_plan(*SCAN_TRAIN_SHAPE)._asdict())
+    got = {k: bwd[k]() for k in trees}
     for k in trees:
-        got = bwd[k]()
         rec["bwd"][k + "_err"] = {
             name: dict(max=float((g.float() - w).abs().max()),
                        mean=float((g.float() - w).abs().mean()))
-            for name, g, w in zip(SCAN_GRADS, got, want)}
-        del got
+            for name, g, w in zip(SCAN_GRADS, got[k], want)}
+    rec["bwd"]["bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+        got["previous"], got["present"])) and all(
+        torch.equal(a, b) for a, b in zip(states["previous"],
+                                          states["present"]))
     return rec
 
 
@@ -3620,7 +3654,9 @@ def _train_counts() -> dict:
                 flash_attention_bwd=fops.bwd_launch_count,
                 paged_attention=pops.launch_count,
                 mamba_scan=sops.launch_count,
-                mamba_scan_bwd=sops.bwd_launch_count)
+                mamba_scan_bwd=sops.bwd_launch_count,
+                mamba_scan_bf16=sops.bf16_launch_count,
+                mamba_scan_bf16_bwd=sops.bf16_bwd_launch_count)
 
 
 def _reset_train_counts() -> None:
@@ -3630,6 +3666,7 @@ def _reset_train_counts() -> None:
 
     fops.launch_count = fops.bwd_launch_count = pops.launch_count = 0
     sops.launch_count = sops.bwd_launch_count = 0
+    sops.bf16_launch_count = sops.bf16_bwd_launch_count = 0
 
 
 def train_run(dev, cfg, phase: str, a_layer: dict, groups: dict,
@@ -4006,7 +4043,7 @@ def _state_leaves(state):
     return [t for _, t in _leaf_paths(state)]
 
 
-# -- training the ssm: the scan backward kernel ----------------------------------
+# -- training the ssm: the scan backward kernel -------------------------------
 
 SCAN_GRADS = ("du", "ddt", "dB", "dC", "dA_log")
 # B, S, din, N, u/B/C type, dt type, x_proj's dt_rank (B and C as views of
@@ -4356,6 +4393,524 @@ def ssm_bf16_grad(dev):
         rel_err=rel, max_rel_err=max(rel.values()), fault_rel_err=fault,
         fault_max_rel_err=max(fault.values()),
         seconds=time.perf_counter() - t0)
+
+
+# -- the mamba_bf16_scan path: the bf16 kernels -------------------------------
+
+# B, S, din, N, u/B/C type, dt type, chunk C, x_proj's dt_rank (B and C as
+# views of its output; 0: of one (B, S, 2N) tensor): SCAN_SHAPES at C 256,
+# 64 and 7 in both types (S = 1, 17, 255 ragged), falcon-mamba's prefill
+# at C 256, 64 and 7 and its training shape at 256, its width in fp32 at a
+# ragged S 600, C 300 (past 256) with S ragged, C 1, N 1, 3 and 64
+SCAN_BF16_CASES = [(1, 1, 8192, 16, "bfloat16", "float32", 256, 256),
+                   (2, 17, 8192, 16, "float32", "float32", 7, 256),
+                   (1, 255, 96, 8, "bfloat16", "float32", 64, 0),
+                   (2, 256, 128, 4, "float32", "float32", 7, 0),
+                   (4, 2048, 8192, 16, "bfloat16", "float32", 256, 256),
+                   (4, 2048, 8192, 16, "bfloat16", "float32", 64, 256),
+                   (4, 2048, 8192, 16, "bfloat16", "float32", 7, 256),
+                   (4, 4096, 8192, 16, "bfloat16", "float32", 256, 256),
+                   (1, 600, 8192, 16, "float32", "float32", 256, 256),
+                   (2, 1000, 512, 16, "bfloat16", "bfloat16", 300, 0),
+                   (1, 100, 40, 1, "float32", "float32", 16, 0),
+                   (1, 33, 24, 3, "float32", "float32", 1, 0),
+                   (2, 70, 64, 64, "bfloat16", "float32", 7, 0)]
+SCAN_BF16_CHUNK = 256       # falcon-mamba-7b's ssm_chunk
+# the backward's edges (falcon-mamba's training shape is checked where it
+# is timed): C 7 with a final-state gradient, C 16 at N 32, C 64 at N 64
+# with dt in bf16, C past S, C 5 at N 4 with din off the block
+SCAN_BF16_BWD_CASES = [(2, 300, 200, 16, "bfloat16", "float32", 7, 0, True),
+                       (1, 37, 40, 32, "float32", "float32", 16, 0, False),
+                       (2, 130, 96, 64, "bfloat16", "bfloat16", 64, 0, False),
+                       (1, 22, 100, 8, "bfloat16", "bfloat16", 300, 0, True),
+                       (2, 17, 72, 4, "float32", "float32", 5, 0, True)]
+SCAN_BF16_FAULTS = ("sequential", "fp32", "unrounded_carry")
+# the forward's limit: the kernel runs the plain version's bf16 operations,
+# which round alike, so a bf16 output (y for bf16 u, h_last) may differ in
+# at most this share of elements, each by at most one bf16 step of max
+# |plain|; an fp32 y (fp32 u), an fp32 sum in another order, within 1e-5
+# of max |plain|
+SCAN_BF16_SHARE, SCAN_BF16_Y32 = 1e-3, 1e-5
+SSM_BF16_LAYERS, SSM_BF16_STEPS = 8, 2
+SSM_BF16_TOL = 2.5e-4       # ssm_bf16_main's card against the CPU: logits
+
+
+def ptxas_entries(lines, marker: str) -> list:
+    """ptxas' lines of the kernels whose mangled name holds ``marker``:
+    each entry-function line and the lines after it up to the next
+    (``-Xptxas -v`` names a kernel once, then its registers and spills)."""
+    out, keep = [], False
+    for ln in lines:
+        if "entry function" in ln:
+            keep = marker in ln
+        if keep:
+            out.append(ln)
+    return out
+
+
+def scan_bf16_fault(ins, chunk: int, fault: str):
+    """(y, h_last) of the bf16 scan with a planted fault: ``sequential``
+    walks h <- bf16(a h) + b step by step (not the reference's order),
+    ``fp32`` is the fp32 function (the flag off), ``unrounded_carry``
+    keeps hs and the carry in fp32 (b_cum + a_cum h unrounded)."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import associative_scan_bf16
+
+    u, dt, Bc, Cc, A_log = ins
+    if fault == "fp32":
+        return sops.mamba_scan(*ins)
+    bf = torch.bfloat16
+    A = -torch.exp(A_log.float())
+    B, S, din = u.shape
+    h = torch.zeros((B, din, A.shape[1]), dtype=torch.float32,
+                    device=u.device)
+    cb = Cc.to(bf).float()
+    ys = []
+    if fault == "sequential":
+        hb = h.to(bf)
+        for t in range(S):
+            a = torch.exp(dt[:, t].float()[..., None] * A).to(bf)
+            b = ((dt[:, t].float() * u[:, t].float())[..., None]
+                 * Bc[:, t].float()[:, None, :]).to(bf)
+            hb = a * hb + b
+            ys.append((hb.float() * cb[:, t, None, :]).sum(-1))
+        return torch.stack(ys, dim=1).to(u.dtype), hb.float()
+    for c0 in range(0, S, chunk):
+        n = min(chunk, S - c0)
+        dtc = dt[:, c0:c0 + n].float()
+        dA = torch.exp(dtc[..., None] * A).to(bf)
+        dBu = ((dtc * u[:, c0:c0 + n].float())[..., None]
+               * Bc[:, c0:c0 + n].float()[:, :, None, :]).to(bf)
+        if n < chunk:
+            pad = (B, chunk - n, din, A.shape[1])
+            dA = torch.cat([dA, dA.new_ones(pad)], dim=1)
+            dBu = torch.cat([dBu, dBu.new_zeros(pad)], dim=1)
+        a_cum, b_cum = associative_scan_bf16(dA, dBu, 1)
+        hs = b_cum.float() + a_cum.float() * h[:, None]
+        ys.append((hs[:, :n] * cb[:, c0:c0 + n, None, :]).sum(-1))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1).to(u.dtype), h
+
+
+def scan_bf16_use(got, want, bf16_values: bool = True) -> dict:
+    """One output of the bf16 scan against its plain version: max |err|
+    over max |plain|, the share of unequal elements, and the limit use
+    (above 1 fails): bf16 values (y for bf16 u, h_last, the states) at
+    most ``SCAN_BF16_SHARE`` unequal and each within one bf16 step (2^-8)
+    of max |plain|; an fp32 y (fp32 u) within ``SCAN_BF16_Y32`` of max
+    |plain|."""
+    diff = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max()) + 1e-30
+    share = float((diff > 0).float().mean())
+    rel = float(diff.max()) / top
+    use = (max(rel / 2.0 ** -8, share / SCAN_BF16_SHARE) if bf16_values
+           else rel / SCAN_BF16_Y32)
+    return dict(rel_err=rel, unequal_share=share, limit_use=use)
+
+
+def scan_inputs_on(dev, shape, dtype, gen, R: int = 0):
+    """``scan_inputs``' distributions drawn on ``dev`` from the torch
+    generator ``gen`` (at falcon-mamba's shapes numpy on the host takes
+    seconds a call)."""
+    B, S, din, N = shape
+    g = lambda *s: torch.randn(s, generator=gen, device=dev)
+    u, dt = g(B, S, din).to(dtype), g(B, S, din).abs() * 0.1
+    dbc = g(B, S, R + 2 * N).to(dtype)
+    return u, dt, dbc[..., R:R + N], dbc[..., R + N:], g(din, N) * 0.5
+
+
+def scan_bf16_case(dev, case, gen, faults: bool = False) -> dict:
+    """One ``SCAN_BF16_CASES`` case on ``dev``: the ``mamba_scan_bf16``
+    kernel (through ``mamba_scan``) against ``mamba_scan_bf16_plain`` on
+    the same inputs, y and h_last (``scan_bf16_use``), with and without
+    states (bit-equal), the states against the plain ones; with
+    ``faults``, each planted fault's limit use (``scan_bf16_fault``)."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_bf16_plain
+
+    B, S, din, N, dt_name, dtd_name, C, R = case
+    ins = list(scan_inputs_on(dev, (B, S, din, N), getattr(torch, dt_name),
+                              gen, R=R))
+    ins[1] = ins[1].to(getattr(torch, dtd_name))
+    b0 = sops.bf16_launch_count
+    y, h = sops.mamba_scan(*ins, C)
+    y1, h1, st = sops.mamba_scan_fwd(*ins, C)
+    launches = sops.bf16_launch_count - b0
+    y0, h0, st0 = mamba_scan_bf16_plain(*ins, C, chunk_states=True)
+    rec = dict(B=B, S=S, din=din, N=N, dtype=dt_name, dt_dtype=dtd_name,
+               chunk=C, bc_stride_t=int(ins[2].stride(1)),
+               split=sops.bf16_split(N), launches=launches,
+               y=scan_bf16_use(y, y0, y0.dtype == torch.bfloat16),
+               h_last=scan_bf16_use(h, h0),
+               states=scan_bf16_use(st, st0),
+               states_bit_equal=bool(torch.equal(y, y1)
+                                     and torch.equal(h, h1)))
+    rec["max_limit_use"] = max(rec[k]["limit_use"]
+                               for k in ("y", "h_last", "states"))
+    if faults:
+        rec["fault_limit_use"] = {}
+        for f in SCAN_BF16_FAULTS:
+            fy, fh = scan_bf16_fault(ins, C, f)
+            rec["fault_limit_use"][f] = max(
+                scan_bf16_use(fy, y0, y0.dtype == torch.bfloat16)[
+                    "limit_use"], scan_bf16_use(fh, h0)["limit_use"])
+    return rec
+
+
+def scan_bf16_bwd_case(dev, case, gen) -> dict:
+    """One ``SCAN_BF16_BWD_CASES`` case: the backward kernel under its
+    bf16 flag (``mamba_scan_bwd(..., bf16_chunk)``) against
+    ``mamba_scan_bwd_plain(..., bf16_chunk)`` on fp32 copies of the same
+    inputs from the bf16 forward kernel's states (``scan_grad_limit_use``),
+    two calls bit-equal."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_bwd_plain
+
+    B, S, din, N, dt_name, dtd_name, C, R, with_dh = case
+    dtype = getattr(torch, dt_name)
+    ins = list(scan_inputs_on(dev, (B, S, din, N), dtype, gen, R=R))
+    ins[1] = ins[1].to(getattr(torch, dtd_name))
+    g = lambda *s: torch.randn(s, generator=gen, device=dev)
+    dy = g(B, S, din).to(dtype)
+    dh = g(B, din, N) if with_dh else None
+    _, _, states = sops.mamba_scan_fwd(*ins, C)
+    b0 = sops.bf16_bwd_launch_count
+    got = sops.mamba_scan_bwd(*ins, states, dy, dh, C)
+    again = sops.mamba_scan_bwd(*ins, states, dy, dh, C)
+    launches = sops.bf16_bwd_launch_count - b0
+    want = mamba_scan_bwd_plain(*(t.float() for t in ins), states,
+                                dy.float(), dh, bf16_chunk=C)
+    use = scan_grad_limit_use(got, want)
+    return dict(B=B, S=S, din=din, N=N, dtype=dt_name, dt_dtype=dtd_name,
+                chunk=C, dh_last=with_dh, launches=launches,
+                max_abs_err=dict(zip(SCAN_GRADS, (
+                    float((a.float() - w).abs().max())
+                    for a, w in zip(got, want)))),
+                limit_use=use, max_limit_use=max(use.values()),
+                bit_equal_calls=all(torch.equal(a, b)
+                                    for a, b in zip(got, again)))
+
+
+def scan_bf16_vs_plain(dev):
+    """The bf16 scan's kernels on the card: ``scan_bf16_case`` at every
+    ``SCAN_BF16_CASES`` case (the planted faults at falcon-mamba's prefill
+    shape, C 256 and 7), ``scan_bf16_bwd_case`` at every
+    ``SCAN_BF16_BWD_CASES`` case and at ``SCAN_TRAIN_SHAPE``, every limit
+    use at most 1, each fault's above 1.  Then CUDA-event medians, L2
+    emptied by a 1 GiB read before each call, of the forward at
+    ``SCAN_MAIN`` (bf16 u/B/C as views of x_proj's output, fp32 dt, C 256)
+    beside the fp32 scan's kernel, and of the backward at
+    ``SCAN_TRAIN_SHAPE`` beside the fp32 backward, in the order fp32,
+    bf16, bf16, fp32; each beside its bound (``scan_bound``,
+    ``scan_bwd_bound``: the fp32 function's bytes and exponentials) and its
+    plain version's time, one call (whose outputs are the oracle of the
+    timed kernels' at these shapes)."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import (
+        mamba_scan_bf16_plain, mamba_scan_bwd_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    t0 = time.perf_counter()
+    rec = dict(phase="scan_bf16_vs_plain", cases=[], bwd_cases=[])
+    for case in SCAN_BF16_CASES:
+        t1 = time.perf_counter()
+        faults = case[:4] == SCAN_MAIN and case[6] in (256, 7)
+        c = scan_bf16_case(dev, case, gen, faults=faults)
+        require(c["max_limit_use"] <= 1.0 and c["states_bit_equal"]
+                and c["launches"] == 2, f"mamba_scan_bf16 {case} != plain "
+                f"({c})")
+        for f, use in c.get("fault_limit_use", {}).items():
+            require(use > 1.0, f"the bf16 scan's check at {case} passes its "
+                               f"{f} fault (limit use {use})")
+        c["seconds"] = time.perf_counter() - t1
+        rec["cases"].append(c)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for case in SCAN_BF16_BWD_CASES:
+        t1 = time.perf_counter()
+        c = scan_bf16_bwd_case(dev, case, gen)
+        require(c["max_limit_use"] <= 1.0 and c["bit_equal_calls"]
+                and c["launches"] == 2, f"mamba_scan_bwd (bf16) {case} != "
+                f"plain ({c})")
+        c["seconds"] = time.perf_counter() - t1
+        rec["bwd_cases"].append(c)
+    rec["check_s"] = time.perf_counter() - t0
+
+    flush = torch.empty(256 << 20, dtype=torch.float32, device=dev)
+    C = SCAN_BF16_CHUNK
+    ins = scan_inputs_on(dev, SCAN_MAIN, torch.bfloat16, gen, R=SCAN_DT_RANK)
+    fwd = [statistics.median(warm_ms(f, flush, 10)) for f in (
+        lambda: sops.mamba_scan(*ins), lambda: sops.mamba_scan(*ins, C),
+        lambda: sops.mamba_scan(*ins, C), lambda: sops.mamba_scan(*ins))]
+    want = []
+    fwd_plain = cuda_ms(lambda: want.append(mamba_scan_bf16_plain(*ins, C)),
+                        1, flush)[0]
+    b0 = sops.bf16_launch_count
+    y1, h1 = sops.mamba_scan(*ins, C)
+    use = max(scan_bf16_use(y1, want[0][0])["limit_use"],
+              scan_bf16_use(h1, want[0][1])["limit_use"])
+    require(sops.bf16_launch_count == b0 + 1 and use <= 1.0,
+            f"timed bf16 scan not one launch, or not its plain version "
+            f"(limit use {use})")
+    bound, by, moved, bytes_ms, exps, exps_ms = scan_bound(SCAN_MAIN)
+    del ins, want, y1, h1
+    ins = scan_inputs_on(dev, SCAN_TRAIN_SHAPE, torch.bfloat16, gen,
+                         R=SCAN_DT_RANK)
+    _, _, st32 = sops.mamba_scan_fwd(*ins)
+    _, _, st16 = sops.mamba_scan_fwd(*ins, C)
+    dy = torch.randn(ins[0].shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    bwd = [statistics.median(warm_ms(f, flush, 5)) for f in (
+        lambda: sops.mamba_scan_bwd(*ins, st32, dy),
+        lambda: sops.mamba_scan_bwd(*ins, st16, dy, None, C),
+        lambda: sops.mamba_scan_bwd(*ins, st16, dy, None, C),
+        lambda: sops.mamba_scan_bwd(*ins, st32, dy))]
+    want = []
+    bwd_plain = cuda_ms(lambda: want.append(mamba_scan_bwd_plain(
+        *(t.float() for t in ins), st16, dy.float(), bf16_chunk=C)), 1,
+        flush)[0]
+    b0 = sops.bf16_bwd_launch_count
+    guse = scan_grad_limit_use(sops.mamba_scan_bwd(*ins, st16, dy, None, C),
+                               want[0])
+    require(sops.bf16_bwd_launch_count == b0 + 1 and
+            max(guse.values()) <= 1.0, f"timed bf16 scan backward not one "
+            f"launch, or not its plain version ({guse})")
+    rec["bwd_cases"].append(dict(
+        B=SCAN_TRAIN_SHAPE[0], S=SCAN_TRAIN_SHAPE[1], din=SCAN_TRAIN_SHAPE[2],
+        N=SCAN_TRAIN_SHAPE[3], dtype="bfloat16", dt_dtype="float32", chunk=C,
+        dh_last=False, limit_use=guse, max_limit_use=max(guse.values())))
+    bbound, bby, bmoved, bbytes_ms, bexps, bexps_ms = scan_bwd_bound(
+        SCAN_TRAIN_SHAPE)
+    cs = rec["cases"]
+    rec["max_rel_err"] = max(max(c["y"]["rel_err"], c["h_last"]["rel_err"])
+                             for c in cs)
+    rec["max_unequal_share"] = max(max(c["y"]["unequal_share"],
+                                       c["h_last"]["unequal_share"])
+                                   for c in cs)
+    rec["max_limit_use"] = max(max(c["max_limit_use"] for c in cs), use)
+    rec["bwd_max_limit_use"] = max(c["max_limit_use"]
+                                   for c in rec["bwd_cases"])
+    rec["bwd_max_abs_err"] = max(float(max(c["max_abs_err"].values()))
+                                 for c in rec["bwd_cases"]
+                                 if "max_abs_err" in c)
+    rec["min_fault_limit_use"] = {
+        f: min(c["fault_limit_use"][f] for c in cs if "fault_limit_use" in c)
+        for f in SCAN_BF16_FAULTS}
+    shape = lambda s: (f"bf16 u/B/C (B/C views of x_proj's output), fp32 dt,"
+                       f" (B, S, din, N) = {s}, C {C}")
+    ms, bms = statistics.median(fwd[1:3]), statistics.median(bwd[1:3])
+    rec.update(
+        fwd=dict(shape=shape(SCAN_MAIN), order="fp32, bf16, bf16, fp32",
+                 ms=ms, ms_runs=fwd[1:3], fp32_ms=[fwd[0], fwd[3]],
+                 bytes=moved, bytes_ms=bytes_ms, exps=exps, exps_ms=exps_ms,
+                 bound_ms=bound, bound_by=by, roofline_share=bound / ms,
+                 plain_ms=fwd_plain, library_ms=None,
+                 ptxas=kbuild.info("mamba_scan_bf16").get("ptxas")),
+        bwd=dict(shape=shape(SCAN_TRAIN_SHAPE) + ", bf16 dy",
+                 order="fp32, bf16, bf16, fp32", ms=bms, ms_runs=bwd[1:3],
+                 fp32_ms=[bwd[0], bwd[3]], bytes=bmoved, bytes_ms=bbytes_ms,
+                 exps=bexps, exps_ms=bexps_ms, bound_ms=bbound, bound_by=bby,
+                 roofline_share=bbound / bms, plain_ms=bwd_plain,
+                 plain_inputs="fp32 copies", library_ms=None,
+                 ptxas=ptxas_entries(kbuild.info("mamba_scan_bwd").get(
+                     "ptxas", []), "Lb1EEEvPKf")),
+        l2_flush_bytes=flush.numel() * 4,
+        seconds=time.perf_counter() - t0)
+    del ins, st32, st16, dy, flush, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssm_bf16_consistency(dev) -> dict:
+    """falcon-mamba-7b at full width in fp32 cut to
+    ``GEN_CONSISTENCY_LAYERS`` layers, under ``mamba_bf16_scan``: a
+    prefill of 300 numpy-seeded tokens (a ragged second chunk) on the
+    card (the bf16 scan kernel, fp32 u) against the port on the CPU (its
+    plain version), with the same params carried through numpy.  The two
+    compute the same bf16 operations on inputs that differ by the fp32
+    rounding of the projections (cuBLAS against the CPU's), so a rare dA
+    or dt u B rounds the other way (one bf16 step) and the scan carries
+    it on: the logits differ by 8.0e-5 to 8.5e-5 (relative Frobenius norm,
+    "NVIDIA H100 80GB HBM3, 700.00 W"), and are held within
+    ``SSM_BF16_TOL``, 3x that; the fp32 function on the card, the same
+    params, lies 1.38e-3 to 1.41e-3 from the CPU's and must lie at least
+    4x the tolerance away, so the check tells the two functions apart."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import opt_flags
+    from repro_torch.models.model import (build, params_from_numpy,
+                                          params_to_numpy)
+
+    t0 = time.perf_counter()
+    full = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(
+        full, n_layers=GEN_CONSISTENCY_LAYERS["falcon-mamba-7b"],
+        dtype="float32", param_dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    host = params_from_numpy(cfg, params_to_numpy(params), device="cpu")
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (1, 300))
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / (b.float().norm() + 1e-30))
+    with opt_flags.use_flags(mamba_bf16_scan=True):
+        got, gcache = api.prefill(params, torch.as_tensor(toks, device=dev),
+                                  full_logits=True)
+        t1 = time.perf_counter()
+        want, wcache = api.prefill(host, torch.from_numpy(toks),
+                                   full_logits=True)
+        cpu_s = time.perf_counter() - t1
+    f32, _ = api.prefill(params, torch.as_tensor(toks, device=dev),
+                         full_logits=True)
+    err, err32 = rel(got.cpu(), want), rel(f32.cpu(), want)
+    state = rel(gcache.ssm.cpu(), wcache.ssm)
+    require(err <= SSM_BF16_TOL and err32 >= 4 * SSM_BF16_TOL,
+            f"ssm_bf16_consistency: card != CPU under the flag (logits rel "
+            f"err {err}, the fp32 function's {err32}; tolerance "
+            f"{SSM_BF16_TOL})")
+    rec = dict(model=cfg.name, dtype=cfg.dtype,
+               reduced=[f"n_layers {full.n_layers} -> {cfg.n_layers}"],
+               tokens=list(toks.shape), chunk=cfg.ssm_chunk,
+               logit_rel_err=err, fp32_function_rel_err=err32,
+               ssm_state_rel_err=state, tol=SSM_BF16_TOL, cpu_s=cpu_s,
+               cpu_threads=torch.get_num_threads(),
+               allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+               seconds=time.perf_counter() - t0)
+    del params, host, api, got, want, f32, gcache, wcache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssm_bf16_main(dev, ssm: dict | None = None,
+                  ssm_train: dict | None = None):
+    """falcon-mamba-7b at full width cut to ``SSM_BF16_LAYERS`` layers under
+    ``mamba_bf16_scan`` (random bf16 weights from a seeded generator):
+    one prefill of ``GEN_BATCH`` x ``GEN_PROMPT`` tokens and ``GEN_STEPS``
+    greedy decode steps (decode is the fp32 recurrence, as the
+    reference's), then ``SSM_BF16_STEPS`` timed training steps after a
+    warm-up on train_main's cell.  The bf16 scan kernels must launch (one
+    forward a layer in the prefill; two forwards, with the remat's
+    recompute, and a backward a layer a microbatch a step) and the fp32
+    scan kernels not at all.  Beside it: the fp32 prefill on the same
+    params, ``ssm_main``'s and ``ssm_train_main``'s times, and
+    ``ssm_bf16_consistency``.  Returns (record, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import opt_flags
+    from repro_torch.models.model import build
+    from repro_torch.training import optim, step as step_lib
+
+    t_phase = time.perf_counter()
+    full = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(full, n_layers=SSM_BF16_LAYERS)
+    api, params, init_s, weight_bytes, _ = _init_model(dev, cfg)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT)), device=dev)
+    max_len = GEN_PROMPT + GEN_STEPS
+    flag = lambda: opt_flags.use_flags(mamba_bf16_scan=True)
+    with flag():                   # warm-up off the counts
+        _, c = api.prefill(params, prompts[:, :64], max_len=65)
+        api.decode(params, prompts[:, :1], c)
+    api.prefill(params, prompts[:, :64], max_len=65)
+    del c
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    api.prefill(params, prompts, max_len=max_len)
+    torch.cuda.synchronize()
+    prefill32_s = time.perf_counter() - t1
+
+    _reset_train_counts()
+    with flag():
+        t1 = time.perf_counter()
+        logits, cache = api.prefill(params, prompts, max_len=max_len)
+        tokens = [_greedy(logits)]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        step_s = []
+        for _ in range(GEN_STEPS):
+            t1 = time.perf_counter()
+            logits, cache = api.decode(params, tokens[-1], cache)
+            tokens.append(_greedy(logits))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+    gen_launches = _train_counts()
+    out = torch.cat(tokens, dim=1)
+    require(bool(torch.isfinite(logits).all()) and
+            out.shape == (GEN_BATCH, GEN_STEPS + 1) and
+            bool(((out >= 0) & (out < cfg.vocab)).all()),
+            "ssm_bf16_main: non-finite logits or tokens outside the "
+            "vocabulary")
+    del cache, logits, params, api
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mapi = build(cfg)
+    oc = optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    step = step_lib.make_train_step(mapi, step_lib.RunConfig(
+        microbatches=TRAIN_MICRO, adamw=oc))
+    state = step_lib.init_train_state(
+        mapi, torch.Generator(device=dev).manual_seed(0), oc, device=dev)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    steps = []
+    with flag():
+        for i in range(1 + SSM_BF16_STEPS):
+            batch, _ = _train_batch(pipe, i, dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(step=i, ms=1e3 * (time.perf_counter() - t1),
+                              loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"])))
+    launches = _train_counts()
+    del state, batch, m, step, mapi
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_steps = 1 + SSM_BF16_STEPS
+    per_layer = TRAIN_MICRO * cfg.n_layers * n_steps
+    want = dict(gen_launches, mamba_scan_bf16=cfg.n_layers + 2 * per_layer,
+                mamba_scan_bf16_bwd=per_layer)
+    require(gen_launches["mamba_scan_bf16"] == cfg.n_layers and
+            launches == want and launches["mamba_scan"] == 0 and
+            launches["mamba_scan_bwd"] == 0,
+            f"ssm_bf16_main: launches {launches} (generation "
+            f"{gen_launches}), want {want}: the bf16 kernels one a layer in "
+            f"the prefill, two forwards and a backward a layer a microbatch "
+            f"a step, the fp32 scan never")
+    losses = [s["loss"] for s in steps]
+    require(all(np.isfinite(losses)) and abs(losses[0] - (
+        math.log(cfg.vocab) + 0.5)) <= CE_FIRST_TOL,
+        f"ssm_bf16_main: losses {losses}, the first not within "
+        f"{CE_FIRST_TOL} of ln V + 1/2")
+    timed = [s["ms"] for s in steps[1:]]
+    cons = ssm_bf16_consistency(dev)
+    return dict(
+        phase="ssm_bf16_main", model=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
+        chunk=cfg.ssm_chunk, dtype=cfg.dtype,
+        flags=dict(mamba_bf16_scan=True),
+        reduced=f"layers 64 -> {SSM_BF16_LAYERS} (the script's time; "
+                f"ssm_train_main's cut), {n_steps} training steps",
+        weights="random, torch.Generator(cuda).manual_seed(0)",
+        init_s=init_s, weight_bytes=weight_bytes, batch=GEN_BATCH,
+        prompt_len=GEN_PROMPT, decode_steps=GEN_STEPS,
+        prefill_ms=1e3 * prefill_s, prefill_ms_fp32_same_params=1e3
+        * prefill32_s, decode_step_ms_p50=_pct(step_s, 50),
+        decode_step_ms_p99=_pct(step_s, 99),
+        beside=dict(ssm_main=ssm and dict(
+                        n_layers=ssm["n_layers"],
+                        prefill_ms=ssm["prefill_ms"],
+                        decode_step_ms_p50=ssm["decode_step_ms_p50"]),
+                    ssm_train_main=ssm_train and dict(
+                        n_layers=ssm_train["n_layers"],
+                        step_ms_p50=ssm_train["step_ms_p50"])),
+        train=dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                   microbatches=TRAIN_MICRO, steps=steps,
+                   step_ms_p50=statistics.median(timed), step_ms_timed=timed),
+        first_tokens=out[0, :8].tolist(), generation_launches=gen_launches,
+        launches=launches, consistency=cons,
+        seconds=time.perf_counter() - t_phase), launches
 
 
 # -- the sharded service and the online tuner on the day-scale stream ---------
@@ -5101,6 +5656,7 @@ def main() -> int:
                        ("paged_attention", pops.SOURCE),
                        ("mamba_scan", sops.SOURCE),
                        ("mamba_scan_bwd", sops.BWD_SOURCE),
+                       ("mamba_scan_bf16", sops.BF16_SOURCE),
                        ("s3fifo_sim", s3build.SOURCE),
                        ("simple_sim", smbuild.SOURCE)])
     build_s = time.perf_counter() - t0
@@ -5111,7 +5667,7 @@ def main() -> int:
                   k: kbuild.info(k) for k in
                   ("cache_sim", "flash_attention", "flash_attention_bwd",
                    "paged_attention", "mamba_scan", "mamba_scan_bwd",
-                   "s3fifo_sim", "simple_sim")}))
+                   "mamba_scan_bf16", "s3fifo_sim", "simple_sim")}))
 
     t0 = time.perf_counter()
     all_traces = suite_traces(traces)
@@ -5417,6 +5973,13 @@ def main() -> int:
     ssm_train, ssm_train_launches = ssm_train_main(dev)
     emit(ssm_train)
     emit(ssm_bf16_grad(dev))
+    # -- the mamba_bf16_scan path: the bf16 kernels ---------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sbf = scan_bf16_vs_plain(dev)
+    emit(sbf)
+    ssm_bf16, ssm_bf16_launches = ssm_bf16_main(dev, ssm, ssm_train)
+    emit(ssm_bf16)
     # -- the sharded train step and the serving launcher ------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -5580,6 +6143,41 @@ def main() -> int:
              library_ms=None, ms_shape=sbt["bwd"]["shape"],
              plain_shape=sbt["bwd"]["shape"], plan=sbt["bwd"]["plan"],
              ptxas=kbuild.info("mamba_scan_bwd").get("ptxas")),
+        dict(name="mamba_scan_bf16", route="cuda",
+             source="src/repro_torch/kernels/mamba_scan/csrc/"
+                    "mamba_scan_bf16.cu",
+             replaces="no Pallas kernel: XLA's bf16 associative scan of "
+                      "src/repro/models/mamba.py:128-142 chunk under "
+                      "mamba_bf16_scan",
+             launches=ssm_bf16_launches["mamba_scan_bf16"],
+             launches_by_path=dict(
+                 ssm_bf16_main=ssm_bf16_launches["mamba_scan_bf16"]),
+             max_abs_err=sbf["max_rel_err"],
+             max_abs_err_is="max |err| / max |plain| over y and h_last",
+             max_unequal_share=sbf["max_unequal_share"],
+             max_limit_use=sbf["max_limit_use"],
+             min_fault_limit_use=sbf["min_fault_limit_use"],
+             ms=sbf["fwd"]["ms"], fp32_scan_ms=sbf["fwd"]["fp32_ms"],
+             plain_ms=sbf["fwd"]["plain_ms"], bound_ms=sbf["fwd"]["bound_ms"],
+             bound_by=sbf["fwd"]["bound_by"], library_ms=None,
+             ms_shape=sbf["fwd"]["shape"], plain_shape=sbf["fwd"]["shape"],
+             ptxas=sbf["fwd"]["ptxas"]),
+        dict(name="mamba_scan_bf16_bwd", route="cuda",
+             source="src/repro_torch/kernels/mamba_scan/csrc/"
+                    "mamba_scan_bwd.cu (kBf16)",
+             replaces="no Pallas kernel: XLA's autodiff of the bf16 "
+                      "associative scan of src/repro/models/mamba.py:128-142 "
+                      "under mamba_bf16_scan",
+             launches=ssm_bf16_launches["mamba_scan_bf16_bwd"],
+             launches_by_path=dict(
+                 ssm_bf16_main=ssm_bf16_launches["mamba_scan_bf16_bwd"]),
+             max_abs_err=sbf["bwd_max_abs_err"],
+             max_limit_use=sbf["bwd_max_limit_use"],
+             ms=sbf["bwd"]["ms"], fp32_bwd_ms=sbf["bwd"]["fp32_ms"],
+             plain_ms=sbf["bwd"]["plain_ms"], bound_ms=sbf["bwd"]["bound_ms"],
+             bound_by=sbf["bwd"]["bound_by"], library_ms=None,
+             ms_shape=sbf["bwd"]["shape"], plain_shape=sbf["bwd"]["shape"],
+             ptxas=sbf["bwd"]["ptxas"]),
         policy_kernel_row("s3fifo_sim", cmp_times, cmp, evp, ("s3fifo",),
                           "w01-skewed/meta", all_traces,
                           tuner_path=tuner_launches["s3fifo_sim"]),

@@ -5,6 +5,12 @@
 // 144), and the TPU kernel (src/repro/kernels/mamba_scan/mamba_scan.py:23)
 // has no backward.  The port's forward runs on mamba_scan.cu, which autograd
 // cannot see through, so this kernel is the gradient of that function.
+// kBf16 (the entry point mamba_scan_bwd_bf16_launch, with the chunk length
+// C) makes it the gradient of mamba_scan_bf16.cu's function straight
+// through its roundings: the same recurrence on a_t = bf16(expf(dt_t A))
+// and bf16(dt_t u_t B_t), C_t rounded to bf16, and h_{t-1} rounded to bf16
+// where t starts a chunk (the forward's carry); the states it starts from
+// are that kernel's.
 // With A = -exp(A_log), a_t = exp(dt_t A) and g_t the gradient reaching the
 // state h_t, it walks the sequence backwards:
 //
@@ -186,12 +192,14 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
-template <typename T, typename TD, int NP, bool kFull, int kSplit>
+template <typename T, typename TD, int NP, bool kFull, int kSplit,
+          bool kBf16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 mamba_scan_bwd_kernel(
     const float* __restrict__ A_log, const float* __restrict__ dh_last,
     T* __restrict__ du, TD* __restrict__ ddt, float* __restrict__ dBp,
     float* __restrict__ dCp, float* __restrict__ dAp, int S, int din, int N,
+    int chunk,
     const __grid_constant__ CUtensorMap tu,
     const __grid_constant__ CUtensorMap tdt,
     const __grid_constant__ CUtensorMap tdy,
@@ -239,14 +247,16 @@ mamba_scan_bwd_kernel(
   const int nch = (S + kStateEvery - 1) / kStateEvery;
 
   // A log2(e) (the forward's value, bit for bit); A itself is A2 ln 2.
-  // States past N and channels past din run on zeros (A2 0, B and C rows
-  // zero, states 0), which keeps their h, g and sums 0.
+  // Under kBf16, A itself (kScale 1).  States past N and channels past din
+  // run on zeros (A2 0, B and C rows zero, states 0), which keeps their h,
+  // g and sums 0.
+  constexpr float kScale = kBf16 ? 1.f : kLog2e, kUnscale = kBf16 ? 1.f : kLn2;
   float A2[NT], carry[NT], dA[NT];
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
     const int n = n0 + i;
     const bool ok = live && (kFull || n < N);
-    A2[i] = ok ? -expf(A_log[(long long)d * N + n]) * kLog2e : 0.f;
+    A2[i] = ok ? -expf(A_log[(long long)d * N + n]) * kScale : 0.f;
     carry[i] = (ok && dh_last != nullptr)
                    ? dh_last[(b * din + d) * (long long)N + n] : 0.f;
     dA[i] = 0.f;
@@ -308,6 +318,26 @@ mamba_scan_bwd_kernel(
     const int i = j * kCh + cl;
     dtv = to_f(reinterpret_cast<const TD*>(rdt + slot * kRowSlot)[i]);
     dtu = dtv * to_f(reinterpret_cast<const T*>(ru + slot * kRowSlot)[i]);
+  };
+  // Under kBf16, the steps of the sub-chunk from step ts that start a
+  // chunk, as bits (one division a sub-chunk; ts is the same in every
+  // thread); and h_{t-1} as its step j reads it: rounded to bf16 where bit
+  // j is set.
+  auto starts_of = [&](int ts) -> unsigned {
+    unsigned m = 0u;
+    if constexpr (kBf16) {
+      const int r = ts % chunk;
+      for (int x = r == 0 ? 0 : chunk - r; x < kSub; x += chunk) m |= 1u << x;
+    }
+    return m;
+  };
+  auto carry_in = [&](unsigned starts, int j, float (&h)[NT]) {
+    if constexpr (kBf16) {
+      if ((starts >> j) & 1u) {
+#pragma unroll
+        for (int i = 0; i < NT; ++i) h[i] = scan::round_bf16(h[i]);
+      }
+    }
   };
 
   // The column sums' share of this thread: dC (q 0, h rows weighted by
@@ -394,15 +424,18 @@ mamba_scan_bwd_kernel(
         issue(c, s + 1, phase);
         const int cur = phase ^ 1;
         const T* sb = reinterpret_cast<const T*>(rb + cur * kBSlot) + n0;
+        const unsigned starts = starts_of(t0 + s * kSub);
 #pragma unroll
         for (int j = 0; j < kSub; ++j) {
           float dtv, dtu;
           dt_dtu(cur, j, dtv, dtu);
           float bv[NT];
           row_f<T, NT>(sb + j * kBR, bv);
+          carry_in(starts, j, h);
 #pragma unroll
           for (int i = 0; i < NT; ++i)
-            h[i] = scan::scan_step(exp2_approx(dtv * A2[i]), h[i], dtu, bv[i]);
+            h[i] = scan::scan_step<kBf16>(scan::decay<kBf16>(dtv, A2[i]),
+                                          h[i], dtu, bv[i]);
         }
 #pragma unroll
         for (int i = 0; i < NT; i += 4)
@@ -431,6 +464,7 @@ mamba_scan_bwd_kernel(
       const T* sc = reinterpret_cast<const T*>(rc + cur * kBSlot) + n0;
       const long long ts = t0 + s * kSub;
       const int ss = min(kSub, steps - s * kSub);
+      const unsigned starts = starts_of((int)ts);
       // Recompute h_t of the sub-chunk into this thread's columns.
       {
         float hr[NT];
@@ -443,10 +477,11 @@ mamba_scan_bwd_kernel(
             dt_dtu(cur, j, dtv, dtu);
             float bv[NT];
             row_f<T, NT>(sb + j * kBR, bv);
+            carry_in(starts, j, hr);
 #pragma unroll
             for (int i = 0; i < NT; ++i) {
-              hr[i] = scan::scan_step(exp2_approx(dtv * A2[i]), hr[i], dtu,
-                                      bv[i]);
+              hr[i] = scan::scan_step<kBf16>(scan::decay<kBf16>(dtv, A2[i]),
+                                             hr[i], dtu, bv[i]);
               hbuf[(j * NT + i) * kPitch + tid] = hr[i];
             }
           }
@@ -460,7 +495,7 @@ mamba_scan_bwd_kernel(
       const T* su = reinterpret_cast<const T*>(ru + cur * kRowSlot) + cl;
       const TD* sdt = reinterpret_cast<const TD*>(rdt + cur * kRowSlot) + cl;
       const T* sdy = reinterpret_cast<const T*>(rdy + cur * kRowSlot) + cl;
-      auto walk = [&](int j, const float (&hp)[NT]) {
+      auto walk = [&](int j, float (&hp)[NT]) {
         const float dtv = to_f(sdt[j * kCh]), uv = to_f(su[j * kCh]);
         const float dyv = to_f(sdy[j * kCh]);
         // sum_n g B and sum_n g a h_{t-1} A2, even and odd states apart
@@ -468,10 +503,12 @@ mamba_scan_bwd_kernel(
         float bv[NT], cv[NT];
         row_f<T, NT>(sb + j * kBR, bv);
         row_f<T, NT>(sc + j * kBR, cv);
+        carry_in(starts, j, hp);
         float* gp = gbuf + j * NT * kPitch + tid;
 #pragma unroll
         for (int i = 0; i < NT; ++i) {
-          const float a = exp2_approx(dtv * A2[i]);
+          if constexpr (kBf16 && sizeof(T) == 4) cv[i] = scan::round_bf16(cv[i]);
+          const float a = scan::decay<kBf16>(dtv, A2[i]);
           const float g = dyv * cv[i] + carry[i];
           gp[i * kPitch] = g;
           gb2[i & 1] += g * bv[i];
@@ -493,7 +530,7 @@ mamba_scan_bwd_kernel(
           if (live) {
             const long long o = (b * S + ts + j) * din + d;
             du[o] = from_f<T>(dtv * gb);
-            ddt[o] = from_f<TD>(uv * gb + gah_a * kLn2);
+            ddt[o] = from_f<TD>(uv * gb + gah_a * kUnscale);
           }
         }
       };
@@ -506,7 +543,7 @@ mamba_scan_bwd_kernel(
           hp[i] = hbuf[((j - 1) * NT + i) * kPitch + tid];
         walk(j, hp);
       }
-      walk(0, hs);
+      walk(0, hs);   // hs is not read again
       __syncthreads();  // every column of h and g is in, and dy and dt u
       column_sums(ts, ss);
     }
@@ -515,7 +552,7 @@ mamba_scan_bwd_kernel(
     float* ap = dAp + (b * din + d) * (long long)N + n0;
 #pragma unroll
     for (int i = 0; i < NT; ++i)
-      if (kFull || n0 + i < N) ap[i] = A2[i] * kLn2 * dA[i];
+      if (kFull || n0 + i < N) ap[i] = A2[i] * kUnscale * dA[i];
   }
 }
 
@@ -565,11 +602,15 @@ bool encode3(CUtensorMap* map, const void* ptr, long long e0, long long e1,
 
 // The kernel for N states and its shared memory, its attributes set;
 // with `occupancy`, also the blocks an SM the runtime fits at once.
-template <typename T, typename TD, int NP, typename K>
+template <typename T, typename TD, int NP, bool kBf16, typename K>
 cudaError_t prepare(int N, K* kern, size_t* smem, int* occupancy) {
   constexpr int kSplit = split_of(NP);
-  *kern = N == NP ? mamba_scan_bwd_kernel<T, TD, NP, true, kSplit>
-                  : mamba_scan_bwd_kernel<T, TD, NP, false, kSplit>;
+  // the bf16 variant is built once, with the test of N (half the build)
+  if constexpr (kBf16)
+    *kern = mamba_scan_bwd_kernel<T, TD, NP, false, kSplit, true>;
+  else
+    *kern = N == NP ? mamba_scan_bwd_kernel<T, TD, NP, true, kSplit, false>
+                    : mamba_scan_bwd_kernel<T, TD, NP, false, kSplit, false>;
   *smem = smem_bytes(NP);
   cudaError_t err = cudaFuncSetAttribute(
       *kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
@@ -583,17 +624,17 @@ cudaError_t prepare(int N, K* kern, size_t* smem, int* occupancy) {
   return err;
 }
 
-template <typename T, typename TD, int NP>
-using KernelOf = decltype(&mamba_scan_bwd_kernel<T, TD, NP, true,
-                                                 split_of(NP)>);
+template <typename T, typename TD, int NP, bool kBf16 = false>
+using KernelOf = decltype(&mamba_scan_bwd_kernel<T, TD, NP, false,
+                                                 split_of(NP), kBf16>);
 
-template <typename T, typename TD, int NP>
+template <typename T, typename TD, int NP, bool kBf16>
 int launch_np(const Args& a, const Strides& st, int B, int S, int din, int N,
-              cudaStream_t stream) {
+              int chunk, cudaStream_t stream) {
   constexpr int kCh = kThreads / split_of(NP);
-  KernelOf<T, TD, NP> kern;
+  KernelOf<T, TD, NP, kBf16> kern;
   size_t smem;
-  const cudaError_t err = prepare<T, TD, NP>(N, &kern, &smem, nullptr);
+  const cudaError_t err = prepare<T, TD, NP, kBf16>(N, &kern, &smem, nullptr);
   if (err != cudaSuccess) return (int)err;
   // the staged rows' tensor maps: u, dt, dy (din, S, B); B, C (N, S, B);
   // the states (N, din, B x ceil(S / kStateEvery))
@@ -614,28 +655,53 @@ int launch_np(const Args& a, const Strides& st, int B, int S, int din, int N,
       static_cast<const float*>(a.A_log), static_cast<const float*>(a.dh_last),
       static_cast<T*>(a.du), static_cast<TD*>(a.ddt),
       static_cast<float*>(a.dBp), static_cast<float*>(a.dCp),
-      static_cast<float*>(a.dAp), S, din, N, m[0], m[1], m[2], m[3], m[4],
-      m[5]);
+      static_cast<float*>(a.dAp), S, din, N, chunk, m[0], m[1], m[2], m[3],
+      m[4], m[5]);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TD>
+template <typename T, typename TD, bool kBf16>
 int launch(const Args& a, const Strides& st, int B, int S, int din, int N,
-           cudaStream_t s) {
+           int chunk, cudaStream_t s) {
   if (!tma_ok(a, st, sizeof(T), sizeof(TD))) return (int)cudaErrorInvalidValue;
-  auto np = N <= 4    ? launch_np<T, TD, 4>
-            : N <= 8  ? launch_np<T, TD, 8>
-            : N <= 16 ? launch_np<T, TD, 16>
-            : N <= 32 ? launch_np<T, TD, 32>
-                      : launch_np<T, TD, kMaxState>;
-  return np(a, st, B, S, din, N, s);
+  auto np = N <= 4    ? launch_np<T, TD, 4, kBf16>
+            : N <= 8  ? launch_np<T, TD, 8, kBf16>
+            : N <= 16 ? launch_np<T, TD, 16, kBf16>
+            : N <= 32 ? launch_np<T, TD, 32, kBf16>
+                      : launch_np<T, TD, kMaxState, kBf16>;
+  return np(a, st, B, S, din, N, chunk, s);
+}
+
+// Both entry points: chunk 0 is the fp32 function, chunk > 0 the bf16
+// scan's at that chunk.
+int launch_any(const Args& a, const Strides& st, int B, int S, int din,
+               int N, int dtype, int dt_dtype, int chunk, cudaStream_t s) {
+  if (chunk > 0) {
+    if (dtype == 0 && dt_dtype == 0)
+      return launch<float, float, true>(a, st, B, S, din, N, chunk, s);
+    if (dtype == 1 && dt_dtype == 0)
+      return launch<__nv_bfloat16, float, true>(a, st, B, S, din, N, chunk,
+                                                s);
+    if (dtype == 1 && dt_dtype == 1)
+      return launch<__nv_bfloat16, __nv_bfloat16, true>(a, st, B, S, din, N,
+                                                        chunk, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == 0 && dt_dtype == 0)
+    return launch<float, float, false>(a, st, B, S, din, N, 0, s);
+  if (dtype == 1 && dt_dtype == 0)
+    return launch<__nv_bfloat16, float, false>(a, st, B, S, din, N, 0, s);
+  if (dtype == 1 && dt_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, false>(a, st, B, S, din, N,
+                                                       0, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, typename TD, int NP>
 int occupancy_np(int N, int* out) {
   KernelOf<T, TD, NP> kern;
   size_t smem;
-  return (int)prepare<T, TD, NP>(N, &kern, &smem, out);
+  return (int)prepare<T, TD, NP, false>(N, &kern, &smem, out);
 }
 
 template <typename T, typename TD>
@@ -676,14 +742,29 @@ extern "C" int mamba_scan_bwd_launch(
                    strides[8], strides[9], strides[10]};
   const Args a{u, dt, Bc, Cc, A_log, states, dy, dh_last,
                du, ddt, dBp, dCp, dAp};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && dt_dtype == 0)
-    return launch<float, float>(a, st, B, S, din, N, s);
-  if (dtype == 1 && dt_dtype == 0)
-    return launch<__nv_bfloat16, float>(a, st, B, S, din, N, s);
-  if (dtype == 1 && dt_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(a, st, B, S, din, N, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_any(a, st, B, S, din, N, dtype, dt_dtype, 0,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// mamba_scan_bwd_launch's arguments with the chunk length `chunk` (at
+// least 1) before the dtypes: the gradient of mamba_scan_bf16.cu's function
+// at that chunk, from that kernel's states.
+extern "C" int mamba_scan_bwd_bf16_launch(
+    const void* u, const void* dt, const void* Bc, const void* Cc,
+    const void* A_log, const void* states, const void* dy,
+    const void* dh_last, void* du, void* ddt, void* dBp, void* dCp,
+    void* dAp, const long long* strides, int B, int S, int din, int N,
+    int chunk, int dtype, int dt_dtype, void* stream) {
+  if (B <= 0 || S <= 0 || din <= 0 || B > 65535 || N <= 0 ||
+      N > kMaxState || states == nullptr || strides[10] < N || chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Strides st{strides[0], strides[1], strides[2], strides[3],
+                   strides[4], strides[5], strides[6], strides[7],
+                   strides[8], strides[9], strides[10]};
+  const Args a{u, dt, Bc, Cc, A_log, states, dy, dh_last,
+               du, ddt, dBp, dCp, dAp};
+  return launch_any(a, st, B, S, din, N, dtype, dt_dtype, chunk,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The blocks of the kernel for N states (dtype and dt_dtype as above)

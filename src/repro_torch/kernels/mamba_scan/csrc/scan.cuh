@@ -1,7 +1,9 @@
 // What the selective scan's forward (mamba_scan.cu) and backward
 // (mamba_scan_bwd.cu) kernels share: the type conversions, the exponential
 // and the state update.  The backward recomputes the forward's states with
-// scan_step, so the two kernels' states are equal bit for bit.
+// scan_step, so the two kernels' states are equal bit for bit.  kBf16
+// selects the step of the bf16-scan function (mamba_scan_bf16.cu): the
+// decay and dt u B rounded to bf16, the decay by expf of dt A.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,12 +40,29 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return r;
 }
 
+// x rounded to the nearest bf16 (ties to even), as a float.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The decay a = exp(dt A) of a step: with A2 = A log2(e), one ex2.approx;
+// under kBf16, with A2 = A itself, bf16(expf(dt A)) as the reference
+// rounds it (fp32 product, exponential, then the rounding).
+template <bool kBf16 = false>
+__device__ __forceinline__ float decay(float dt, float A2) {
+  if constexpr (kBf16) return round_bf16(expf(__fmul_rn(dt, A2)));
+  else return exp2_approx(dt * A2);
+}
+
 // One step of a state: h <- exp(dt A) h + (dt u) B, with a = exp(dt A)
 // given; written with explicit roundings so that both kernels compute it
-// alike whatever the compiler would contract.
+// alike whatever the compiler would contract.  Under kBf16, (dt u) B is
+// rounded to bf16 first.
+template <bool kBf16 = false>
 __device__ __forceinline__ float scan_step(float a, float h, float dtu,
                                            float b) {
-  return __fmaf_rn(a, h, __fmul_rn(dtu, b));
+  if constexpr (kBf16) return __fmaf_rn(a, h, round_bf16(__fmul_rn(dtu, b)));
+  else return __fmaf_rn(a, h, __fmul_rn(dtu, b));
 }
 
 }  // namespace scan

@@ -25,9 +25,20 @@ CUDA implementations launch the kernels, and their fake implementations
 give the outputs' shapes, so a ``FakeTensorMode`` trace (the dry-run)
 runs each as one op on tensors of any device.
 
+``bf16_chunk`` (every entry point; 0, the default, is the function
+above) selects the function of the reference's ``mamba_bf16_scan`` flag
+at chunks of that many steps: dA and dt u B rounded to bf16 and
+combined in bf16 in the order of ``jax.lax.associative_scan``
+(``ref.mamba_scan_bf16_plain``).  On CUDA tensors it launches
+``csrc/mamba_scan_bf16.cu`` (operators ``mamba_scan_bf16`` and
+``mamba_scan_bf16_states``) and, for the gradient, the backward kernel
+with its kBf16 flag (``mamba_scan_bf16_bwd``), a straight-through
+gradient of the roundings; on CPU tensors their plain versions.
+
 ``launch_count`` counts forward launches and ``bwd_launch_count``
-backward launches (plain integers; reset them by assigning 0), so a run
-can show that its path went through the kernels.  ``scan_plan`` and
+backward launches, ``bf16_launch_count`` and ``bf16_bwd_launch_count``
+those of the bf16 scan (plain integers; reset them by assigning 0), so a
+run can show that its path went through the kernels.  ``scan_plan`` and
 ``bwd_plan`` (plain Python) give a launch's shape: threads a channel,
 blocks, shared memory, the blocks an SM holds at once and whether the
 grid is resident in one wave.
@@ -43,16 +54,21 @@ import torch
 
 from repro_torch.kernels import runs_plain
 from repro_torch.kernels.mamba_scan.ref import (
-    STATE_CHUNK, mamba_scan_bwd_plain, mamba_scan_plain,
+    STATE_CHUNK, mamba_scan_bf16_plain, mamba_scan_bwd_plain,
+    mamba_scan_plain,
 )
 from repro_torch.sharding import dtensor
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 BWD_SOURCE = SOURCE.with_name("mamba_scan_bwd.cu")
+BF16_SOURCE = SOURCE.with_name("mamba_scan_bf16.cu")
 _p, _i32 = ctypes.c_void_p, ctypes.c_int
 SYMBOLS = {"mamba_scan_launch": [_p] * 9 + [_i32] * 6 + [_p]}
 BWD_SYMBOLS = {"mamba_scan_bwd_launch": [_p] * 14 + [_i32] * 6 + [_p],
+               "mamba_scan_bwd_bf16_launch": [_p] * 14 + [_i32] * 7 + [_p],
                "mamba_scan_bwd_occupancy": [_i32] * 3 + [_p]}
+BF16_SYMBOLS = {"mamba_scan_bf16_launch": [_p] * 9 + [_i32] * 7 + [_p]}
+MAX_BF16_CHUNK = 65_536   # csrc/mamba_scan_bf16.cu refuses longer chunks
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE, MAX_BATCH = 64, 65535   # N; B is the grid's y extent
 # The kernel's block (csrc/mamba_scan.cu): threads, time steps staged a
@@ -137,6 +153,13 @@ def bwd_plan(B: int, S: int, din: int, N: int) -> BwdPlan:
                    cb * B <= SMS * per_sm)
 
 
+def bf16_split(N: int) -> int:
+    """Threads a channel of ``csrc/mamba_scan_bf16.cu``: NP / 2, NP = N
+    rounded up to a power of two, at least 2 (each thread walks a pair
+    of states)."""
+    return max(2, 1 << (N - 1).bit_length()) // 2
+
+
 def bwd_occupancy(N: int, dtype: torch.dtype, dt_dtype: torch.dtype) -> int:
     """The backward kernel's blocks an SM for N states, as the CUDA runtime
     counts them on the current card (``bwd_plan``'s ``blocks_per_sm`` is
@@ -153,14 +176,20 @@ def bwd_occupancy(N: int, dtype: torch.dtype, dt_dtype: torch.dtype) -> int:
     return out.value
 
 
-# Number of kernel launches in this process: forward, backward.
+# Number of kernel launches in this process: forward, backward, and the
+# bf16 scan's forward and backward.
 launch_count = 0
 bwd_launch_count = 0
+bf16_launch_count = 0
+bf16_bwd_launch_count = 0
 
 
-def _check(u, dt, Bc, Cc, A_log) -> None:
+def _check(u, dt, Bc, Cc, A_log, bf16_chunk: int = 0) -> None:
     """Hold shapes, dtypes, devices and layout to what the kernel takes."""
     dtensor.refuse("mamba_scan", u, dt, Bc, Cc, A_log)
+    if not 0 <= bf16_chunk <= MAX_BF16_CHUNK:
+        raise ValueError(f"bf16_chunk {bf16_chunk}: 0 (the fp32 scan) or a "
+                         f"chunk of 1 to {MAX_BF16_CHUNK} steps")
     if u.dim() != 3 or dt.dim() != 3 or Bc.dim() != 3 or Cc.dim() != 3 \
             or A_log.dim() != 2:
         raise ValueError("u, dt, Bc and Cc must be 3-d and A_log 2-d")
@@ -222,14 +251,20 @@ def bwd_strides(u, dt, Bc, Cc, dy, states):
         states.stride(2))
 
 
-def _launch(u, dt, Bc, Cc, A_log, states: bool):
+def _launch(u, dt, Bc, Cc, A_log, states: bool, chunk: int = 0):
     """One forward launch on CUDA tensors -> (y, h_last, the states
     before every ``STATE_CHUNK`` steps (B, ceil(S / STATE_CHUNK), din, N)
-    fp32 or None)."""
-    global launch_count
+    fp32 or None); ``chunk`` > 0: the bf16 scan's kernel at that
+    chunk."""
+    global launch_count, bf16_launch_count
     from repro_torch.kernels import build
 
-    lib = build.load("mamba_scan", SOURCE, SYMBOLS)
+    if chunk:
+        lib = build.load("mamba_scan_bf16", BF16_SOURCE, BF16_SYMBOLS)
+        entry = lambda *a: lib.mamba_scan_bf16_launch(*a[:13], chunk, *a[13:])
+    else:
+        lib = build.load("mamba_scan", SOURCE, SYMBOLS)
+        entry = lib.mamba_scan_launch
     B, S, din = u.shape
     N = A_log.shape[1]
     y = torch.empty((B, S, din), dtype=u.dtype, device=u.device)
@@ -239,15 +274,19 @@ def _launch(u, dt, Bc, Cc, A_log, states: bool):
     strides = _strides(u, dt, Bc, Cc)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.mamba_scan_launch(
+        err = entry(
             u.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
             A_log.data_ptr(), y.data_ptr(), h_last.data_ptr(),
             None if st is None else st.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), B, S, din, N,
             DTYPES[u.dtype], DTYPES[dt.dtype], stream)
+    name = "mamba_scan_bf16" if chunk else "mamba_scan"
     if err != 0:
-        raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
-    launch_count += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if chunk:
+        bf16_launch_count += 1
+    else:
+        launch_count += 1
     return y, h_last, st
 
 
@@ -282,26 +321,58 @@ def _states_op(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     return _launch(u, dt, Bc, Cc, A_log, states=True)
 
 
-@_states_op.register_fake
-def _(u, dt, Bc, Cc, A_log):
+def _states_outs(u, A_log):
     B, S, din = u.shape
     return _scan_outs(u, A_log) + (torch.empty(
         (B, -(-S // STATE_CHUNK), din, A_log.shape[1]), dtype=torch.float32,
         device=u.device),)
 
 
-@torch.library.custom_op("repro_torch::mamba_scan_bwd", mutates_args=(),
+@_states_op.register_fake
+def _(u, dt, Bc, Cc, A_log):
+    return _states_outs(u, A_log)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_bf16", mutates_args=(),
                          device_types="cuda")
-def _bwd_op(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
-            Cc: torch.Tensor, A_log: torch.Tensor, states: torch.Tensor,
-            dy: torch.Tensor, dh_last: Optional[torch.Tensor]
-            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                       torch.Tensor, torch.Tensor]:
-    """The backward kernel, its per-block partials summed."""
-    global bwd_launch_count
+def _bf16_op(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+             Cc: torch.Tensor, A_log: torch.Tensor, chunk: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 scan's kernel, no states."""
+    return _launch(u, dt, Bc, Cc, A_log, False, chunk)[:2]
+
+
+@_bf16_op.register_fake
+def _(u, dt, Bc, Cc, A_log, chunk):
+    return _scan_outs(u, A_log)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_bf16_states",
+                         mutates_args=(), device_types="cuda")
+def _bf16_states_op(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+                    Cc: torch.Tensor, A_log: torch.Tensor, chunk: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 scan's kernel with the states its backward starts from."""
+    return _launch(u, dt, Bc, Cc, A_log, True, chunk)
+
+
+@_bf16_states_op.register_fake
+def _(u, dt, Bc, Cc, A_log, chunk):
+    return _states_outs(u, A_log)
+
+
+def _bwd_launch(u, dt, Bc, Cc, A_log, states, dy, dh_last, chunk: int):
+    """One backward launch on CUDA tensors (``chunk`` > 0: the bf16
+    scan's gradient at that chunk), its per-block partials summed."""
+    global bwd_launch_count, bf16_bwd_launch_count
     from repro_torch.kernels import build
 
     lib = build.load("mamba_scan_bwd", BWD_SOURCE, BWD_SYMBOLS)
+    if chunk:
+        entry = lambda *a: lib.mamba_scan_bwd_bf16_launch(*a[:18], chunk,
+                                                          *a[18:])
+    else:
+        entry = lib.mamba_scan_bwd_launch
     B, S, din = u.shape
     N = A_log.shape[1]
     if dh_last is not None:
@@ -317,33 +388,75 @@ def _bwd_op(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
     strides = bwd_strides(u, dt, Bc, Cc, dy, states)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.mamba_scan_bwd_launch(
+        err = entry(
             u.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
             A_log.data_ptr(), states.data_ptr(), dy.data_ptr(),
             None if dh_last is None else dh_last.data_ptr(), du.data_ptr(),
             ddt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p), B, S, din, N,
             DTYPES[u.dtype], DTYPES[dt.dtype], stream)
+    name = "mamba_scan_bf16_bwd" if chunk else "mamba_scan_bwd"
     if err != 0:
-        raise RuntimeError(f"mamba_scan_bwd launch failed: CUDA error {err}")
-    bwd_launch_count += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if chunk:
+        bf16_bwd_launch_count += 1
+    else:
+        bwd_launch_count += 1
     return (du, ddt, dBp.sum(2).to(Bc.dtype), dCp.sum(2).to(Cc.dtype),
             dAp.sum(0))
 
 
-@_bwd_op.register_fake
-def _(u, dt, Bc, Cc, A_log, states, dy, dh_last):
+def _grads_like(u, dt, Bc, Cc, A_log):
     return (torch.empty_like(u), torch.empty_like(dt), torch.empty_like(Bc),
             torch.empty_like(Cc), torch.empty_like(A_log))
 
 
+@torch.library.custom_op("repro_torch::mamba_scan_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+            Cc: torch.Tensor, A_log: torch.Tensor, states: torch.Tensor,
+            dy: torch.Tensor, dh_last: Optional[torch.Tensor]
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor]:
+    """The backward kernel, its per-block partials summed."""
+    return _bwd_launch(u, dt, Bc, Cc, A_log, states, dy, dh_last, 0)
+
+
+@_bwd_op.register_fake
+def _(u, dt, Bc, Cc, A_log, states, dy, dh_last):
+    return _grads_like(u, dt, Bc, Cc, A_log)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_bf16_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bf16_bwd_op(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
+                 Cc: torch.Tensor, A_log: torch.Tensor, states: torch.Tensor,
+                 dy: torch.Tensor, dh_last: Optional[torch.Tensor], chunk: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor, torch.Tensor]:
+    """The backward kernel under its kBf16 flag: the bf16 scan's
+    gradient at ``chunk``."""
+    return _bwd_launch(u, dt, Bc, Cc, A_log, states, dy, dh_last, chunk)
+
+
+@_bf16_bwd_op.register_fake
+def _(u, dt, Bc, Cc, A_log, states, dy, dh_last, chunk):
+    return _grads_like(u, dt, Bc, Cc, A_log)
+
+
 def mamba_scan_fwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
-                   Cc: torch.Tensor, A_log: torch.Tensor):
+                   Cc: torch.Tensor, A_log: torch.Tensor,
+                   bf16_chunk: int = 0):
     """``mamba_scan`` that also returns the states the backward starts
     from: (y, h_last, states (B, ceil(S / STATE_CHUNK), din, N) fp32, h
     before every ``STATE_CHUNK`` steps).  No autograd graph is
     recorded."""
-    _check(u, dt, Bc, Cc, A_log)
+    _check(u, dt, Bc, Cc, A_log, bf16_chunk)
+    if bf16_chunk:
+        if runs_plain("mamba_scan_bf16", u):
+            return mamba_scan_bf16_plain(u, dt, Bc, Cc, A_log, bf16_chunk,
+                                         chunk_states=True)
+        return _bf16_states_op(u, dt, Bc, Cc, A_log, bf16_chunk)
     if runs_plain("mamba_scan", u):
         return mamba_scan_plain(u, dt, Bc, Cc, A_log, chunk_states=True)
     return _states_op(u, dt, Bc, Cc, A_log)
@@ -352,14 +465,15 @@ def mamba_scan_fwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
 def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
                    Cc: torch.Tensor, A_log: torch.Tensor,
                    states: torch.Tensor, dy: torch.Tensor,
-                   dh_last: torch.Tensor | None = None):
+                   dh_last: torch.Tensor | None = None,
+                   bf16_chunk: int = 0):
     """The gradients (du, ddt, dB, dC, dA_log) of ``mamba_scan(u, dt, Bc,
-    Cc, A_log)`` given its ``states`` (``mamba_scan_fwd``), y's gradient
-    ``dy`` and h_last's ``dh_last`` (or None), each in its input's type
-    (dA_log fp32).  On CUDA tensors it launches ``csrc/mamba_scan_bwd.cu``
-    and sums its per-block partials, or raises; on CPU tensors it runs
-    ``mamba_scan_bwd_plain``."""
-    _check(u, dt, Bc, Cc, A_log)
+    Cc, A_log, bf16_chunk)`` given its ``states`` (``mamba_scan_fwd``), y's
+    gradient ``dy`` and h_last's ``dh_last`` (or None), each in its
+    input's type (dA_log fp32).  On CUDA tensors it launches
+    ``csrc/mamba_scan_bwd.cu`` and sums its per-block partials, or raises;
+    on CPU tensors it runs ``mamba_scan_bwd_plain``."""
+    _check(u, dt, Bc, Cc, A_log, bf16_chunk)
     B, S, din = u.shape
     N = A_log.shape[1]
     nst = -(-S // STATE_CHUNK)
@@ -377,18 +491,24 @@ def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
            if t is not None):
         raise ValueError("states, dy or dh_last is not on u's device")
     if runs_plain("mamba_scan_bwd", u):
-        return mamba_scan_bwd_plain(u, dt, Bc, Cc, A_log, states, dy, dh_last)
+        return mamba_scan_bwd_plain(u, dt, Bc, Cc, A_log, states, dy, dh_last,
+                                    bf16_chunk)
+    if bf16_chunk:
+        return _bf16_bwd_op(u, dt, Bc, Cc, A_log, states, dy, dh_last,
+                            bf16_chunk)
     return _bwd_op(u, dt, Bc, Cc, A_log, states, dy, dh_last)
 
 
 class MambaScan(torch.autograd.Function):
     """The scan with its gradient: on CUDA the forward kernel with its
-    states and the backward kernel, on the CPU their plain versions."""
+    states and the backward kernel, on the CPU their plain versions
+    (``bf16_chunk`` as ``mamba_scan``'s)."""
 
     @staticmethod
-    def forward(ctx, u, dt, Bc, Cc, A_log):
-        y, h_last, states = mamba_scan_fwd(u, dt, Bc, Cc, A_log)
+    def forward(ctx, u, dt, Bc, Cc, A_log, bf16_chunk=0):
+        y, h_last, states = mamba_scan_fwd(u, dt, Bc, Cc, A_log, bf16_chunk)
         ctx.save_for_backward(u, dt, Bc, Cc, A_log, states)
+        ctx.bf16_chunk = bf16_chunk
         ctx.set_materialize_grads(False)
         return y, h_last
 
@@ -397,21 +517,28 @@ class MambaScan(torch.autograd.Function):
         u, dt, Bc, Cc, A_log, states = ctx.saved_tensors
         if dy is None:   # only h_last reached the loss
             dy = torch.zeros_like(u)
-        grads = mamba_scan_bwd(u, dt, Bc, Cc, A_log, states, dy, dh_last)
-        return tuple(g if need else None
-                     for g, need in zip(grads, ctx.needs_input_grad))
+        grads = mamba_scan_bwd(u, dt, Bc, Cc, A_log, states, dy, dh_last,
+                               ctx.bf16_chunk)
+        return tuple(g if need else None for g, need in
+                     zip(grads + (None,), ctx.needs_input_grad))
 
 
 def mamba_scan(u: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
-               Cc: torch.Tensor, A_log: torch.Tensor):
+               Cc: torch.Tensor, A_log: torch.Tensor, bf16_chunk: int = 0):
     """u/dt: (B, S, din); Bc/Cc: (B, S, N); A_log: (din, N) ->
-    (y (B, S, din) in u's type, h_last (B, din, N) fp32).  Differentiable
-    through ``MambaScan`` when grad is enabled and an input requires
-    grad."""
-    _check(u, dt, Bc, Cc, A_log)
+    (y (B, S, din) in u's type, h_last (B, din, N) fp32).  ``bf16_chunk``
+    > 0: the bf16 scan at chunks of that many steps (the module's
+    docstring).  Differentiable through ``MambaScan`` when grad is enabled
+    and an input requires grad."""
+    _check(u, dt, Bc, Cc, A_log, bf16_chunk)
     ins = (u, dt, Bc, Cc, A_log)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        return MambaScan.apply(*ins)
+        # the fp32 scan's Function keeps its five inputs (and gradients)
+        return MambaScan.apply(*ins, *((bf16_chunk,) if bf16_chunk else ()))
+    if bf16_chunk:
+        if runs_plain("mamba_scan_bf16", u):
+            return mamba_scan_bf16_plain(*ins, bf16_chunk)
+        return _bf16_op(*ins, bf16_chunk)
     if runs_plain("mamba_scan", u):
         return mamba_scan_plain(*ins)
     return _scan_op(*ins)

@@ -115,6 +115,9 @@ KERNEL_FLOPS = {
     "mamba_scan": lambda *args: 0.0,
     "mamba_scan_states": lambda *args: 0.0,
     "mamba_scan_bwd": lambda *args: 0.0,
+    "mamba_scan_bf16": lambda *args: 0.0,
+    "mamba_scan_bf16_states": lambda *args: 0.0,
+    "mamba_scan_bf16_bwd": lambda *args: 0.0,
     "paged_attention": _paged_flops,
     "paged_attention_lse": _paged_flops,
 }

@@ -18,10 +18,15 @@ functions here take one layer's params.  As in the reference, Mamba1's
 parameter dtype (``FP32_LEAVES``).
 
 The opt flags of ``mamba1_full`` (``models/opt_flags.py``):
-``mamba_seq_scan`` and ``mamba_chunk_override`` only reorder the
-reference's fp32 recurrence, which the kernel computes whatever they
-say; ``mamba_bf16_scan`` (dA and dBu rounded to bf16) is another
-function, refused (ROADMAP.md queue 1, item 17).
+``mamba_seq_scan`` takes precedence, as in the reference, and with
+``mamba_chunk_override`` alone only reorders the reference's fp32
+recurrence, which the ``mamba_scan`` kernel computes whatever they say.
+``mamba_bf16_scan`` (without ``mamba_seq_scan``) is another function:
+dA and dBu rounded to bf16 and combined in bf16 by an associative scan
+over chunks of ``mamba_chunk_override or ssm_chunk`` steps, so there the
+chunk changes the result.  The port runs it on the ``mamba_scan_bf16``
+kernel and its gradient on ``mamba_scan_bwd`` under its bf16 flag.
+Decode stays the fp32 recurrence under every flag, as the reference's.
 """
 
 from __future__ import annotations
@@ -129,8 +134,9 @@ def _mamba1_out(p: Dict, x, y, u, z) -> torch.Tensor:
     return x + L.settle(y @ p["out_proj"])
 
 
-def selective_scan(u, dt, Bc, Cc, A_log):
-    """The ``mamba_scan`` kernel's wrapper, called on local shards where
+def selective_scan(u, dt, Bc, Cc, A_log, bf16_chunk: int = 0):
+    """The ``mamba_scan`` kernel's wrapper (``bf16_chunk`` as its), called
+    on local shards where
     u is a DTensor (the sharded step): the scan is local over the batch
     and over ``d_inner``.  A mesh dim that splits u or dt over d_inner
     splits u, dt, A_log, y and the state there, and each rank's
@@ -139,7 +145,7 @@ def selective_scan(u, dt, Bc, Cc, A_log):
     dt, Bc, Cc, y and the state, and A_log's gradient is a ``Partial``
     sum over it."""
     if not dt_lib.is_dtensor(u):
-        return scan_ops.mamba_scan(u, dt, Bc, Cc, A_log)
+        return scan_ops.mamba_scan(u, dt, Bc, Cc, A_log, bf16_chunk)
     from torch.distributed.tensor import Partial, Replicate, Shard
     u, dt, Bc, Cc = (dt_lib.settle(t) for t in (u, dt, Bc, Cc))
     upl, bpl, bgrad, apl, agrad, hpl = [], [], [], [], [], []
@@ -160,24 +166,22 @@ def selective_scan(u, dt, Bc, Cc, A_log):
     y, h = scan_ops.mamba_scan(
         dt_lib.local_in(u, upl), dt_lib.local_in(dt, upl),
         dt_lib.local_in(Bc, bpl, bgrad), dt_lib.local_in(Cc, bpl, bgrad),
-        dt_lib.local_in(A_log, apl, agrad))
+        dt_lib.local_in(A_log, apl, agrad), bf16_chunk)
     return dt_lib.local_out(y, u, upl), dt_lib.local_out(h, u, hpl)
 
 
 def mamba1_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                 return_state: bool = False):
     """x: (B, S, D) -> (B, S, D).  The selective scan is the
-    ``mamba_scan`` kernel.  ``return_state``: also return
-    (conv_state (B, K-1, din), ssm_state (B, din, N) fp32) for decode.
-    Under ``mamba_seq_scan`` or ``mamba_chunk_override`` the result is
-    the same; ``mamba_bf16_scan`` raises ``NotImplementedError``."""
-    if opt_flags.FLAGS.mamba_bf16_scan:
-        raise NotImplementedError(
-            "mamba_bf16_scan rounds dA and dBu to bf16, a different "
-            "function from the fp32 mamba_scan kernel's (ROADMAP.md queue "
-            "1, item 17)")
+    ``mamba_scan`` kernel, or under ``mamba_bf16_scan`` (and not
+    ``mamba_seq_scan``) the bf16 scan at chunks of ``mamba_chunk_override
+    or ssm_chunk`` steps.  ``return_state``: also return (conv_state
+    (B, K-1, din), ssm_state (B, din, N) fp32) for decode."""
+    f = opt_flags.FLAGS
+    chunk = ((f.mamba_chunk_override or cfg.ssm_chunk)
+             if f.mamba_bf16_scan and not f.mamba_seq_scan else 0)
     xin, z, u, dt, Bc, Cc = _mamba1_inputs(cfg, p, x, None)
-    y, h_last = selective_scan(u, dt, Bc, Cc, p["A_log"])
+    y, h_last = selective_scan(u, dt, Bc, Cc, p["A_log"], chunk)
     out = _mamba1_out(p, x, y, u, z)
     if return_state:
         return out, (_conv_state(xin, cfg.ssm_conv), h_last)

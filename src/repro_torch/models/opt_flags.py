@@ -5,14 +5,17 @@ The paper-faithful lowering is flags-all-off.  Module-level, so model
 code reads ``opt_flags.FLAGS`` at call time without threading knobs
 through every signature.  What each flag does in the port:
 
-* ``mamba_seq_scan`` and ``mamba_chunk_override`` choose only how the
-  reference orders the same fp32 recurrence (a sequential time scan, or
-  the chunk of its associative scan).  That recurrence is what the
-  ``mamba_scan`` kernel computes, so they change nothing on the port's
-  path (``models/mamba.py::mamba1_full``).
-* ``mamba_bf16_scan`` rounds dA and dBu to bf16 in the reference: a
-  different function, which ``mamba1_full`` refuses (ROADMAP.md queue
-  1, item 17).
+* ``mamba_seq_scan`` and, alone, ``mamba_chunk_override`` choose only
+  how the reference orders the same fp32 recurrence (a sequential time
+  scan, or the chunk of its associative scan).  That recurrence is what
+  the ``mamba_scan`` kernel computes, so they change nothing on the
+  port's path (``models/mamba.py::mamba1_full``).
+* ``mamba_bf16_scan`` rounds dA and dBu to bf16 and runs the associative
+  scan in bf16 over chunks of ``mamba_chunk_override or ssm_chunk``
+  steps: a different function, which ``mamba1_full`` computes on the
+  ``mamba_scan_bf16`` kernel.  Under it ``mamba_chunk_override`` changes
+  the result; ``mamba_seq_scan`` overrides it, as in the reference, and
+  decode stays fp32.
 * ``decode_shard_scores`` and ``decode_seq_axis`` drive
   ``models/layers.py::_maybe_shard_scores``, and ``moe_local_dispatch``
   ``models/moe.py::_constrain``: sharding hints that redistribute the

@@ -1,6 +1,7 @@
 """The port's Hopper kernels (``cache_sim``, ``s3fifo_sim``,
 ``simple_sim``, ``flash_attention``, ``paged_attention``, ``mamba_scan``)
-against their plain PyTorch versions, on a card, and the moe and vlm
+(and the bf16 scan of ``mamba_bf16_scan``) against their plain PyTorch
+versions, on a card, and the moe and vlm
 serving paths and the contiguous-cache decode (dense, hybrid,
 encoder-decoder) on the card against the port on the CPU; and training:
 the flash and scan backward kernels against their plain versions, the
@@ -785,6 +786,50 @@ def test_mamba_scan_kernel_equals_plain(B, S, din, N, dtype, cuda_device):
         scale = float(y0.float().abs().max())
         assert float((y.float() - y0.float()).abs().max()) <= 2e-2 * scale
         torch.testing.assert_close(h, h0, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [7, 64, 256])
+def test_mamba_scan_bf16_kernels_equal_plain(chunk, dtype, cuda_device):
+    """The bf16 scan (``mamba_bf16_scan``) on the card: h_last and the
+    states bit-equal to the plain version (the same bf16 operations), y
+    within 1e-5 of max |y| plus one bf16 step where y is bf16 (an fp32
+    sum in another order); the backward under its bf16 flag within 1e-4
+    of each gradient's max plus half a bf16 step of bf16 outputs."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan.ref import (
+        mamba_scan_bf16_plain, mamba_scan_bwd_plain,
+    )
+    rng = np.random.default_rng(chunk)
+    B, S, din, N = 2, 300, 96, 16
+    u = _randn(rng, (B, S, din), dtype, cuda_device)
+    dt = _randn(rng, (B, S, din), torch.float32, cuda_device).abs() * 0.1
+    Bc = _randn(rng, (B, S, N), dtype, cuda_device)
+    Cc = _randn(rng, (B, S, N), dtype, cuda_device)
+    A_log = _randn(rng, (din, N), torch.float32, cuda_device) * 0.5
+    before = sops.bf16_launch_count
+    y, h, st = sops.mamba_scan_fwd(u, dt, Bc, Cc, A_log, chunk)
+    torch.cuda.synchronize()
+    assert sops.bf16_launch_count == before + 1
+    y0, h0, st0 = mamba_scan_bf16_plain(u, dt, Bc, Cc, A_log, chunk,
+                                        chunk_states=True)
+    assert torch.equal(h, h0) and torch.equal(st, st0)
+    scale = float(y0.float().abs().max())
+    step = 2.0 ** -7 * y0.float().abs() if dtype == torch.bfloat16 else 0.0
+    assert bool(((y.float() - y0.float()).abs()
+                 <= 1e-5 * scale + step).all())
+    dy = _randn(rng, (B, S, din), dtype, cuda_device)
+    got = sops.mamba_scan_bwd(u, dt, Bc, Cc, A_log, st, dy, None, chunk)
+    want = mamba_scan_bwd_plain(u.float(), dt, Bc.float(), Cc.float(),
+                                A_log, st, dy.float(), None,
+                                bf16_chunk=chunk)
+    for g, w in zip(got, want):
+        m, e = torch.frexp(w)
+        half = torch.ldexp(torch.ones_like(m), e - 9) * (w != 0)
+        lim = 1e-4 * float(w.abs().max()) + (
+            half if g.dtype == torch.bfloat16 else 0.0)
+        assert bool(((g.float() - w).abs() <= lim + 1e-30).all())
 
 
 @pytest.mark.cuda

@@ -350,9 +350,3 @@ def test_mamba1_flags_equal_reference(mamba1, flags):
     assert torch.equal(PM.mamba1_full(cfg, p, _t(x)), out)
 
 
-def test_mamba1_bf16_scan_is_refused(mamba1):
-    _, cfg, _, p, x = mamba1
-    with PF.use_flags(mamba_bf16_scan=True):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            PM.mamba1_full(cfg, p, _t(x))
-    PM.mamba1_full(cfg, p, _t(x))                       # restored

@@ -35,7 +35,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-SASS_NAME = "bwd_kernelI13__nv_bfloat16fLi16ELb1"
+SASS_NAME = "bwd_kernelI13__nv_bfloat16fLi16ELb1ELi2ELb0E"
 
 
 def _chip_smoke():
