@@ -119,7 +119,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     """The record of one cell, on the fake process group already
     started (``fake_process_group``) with the mesh's ranks.  ``cfg`` and
     ``mesh_shape`` replace the arch's config and the production mesh
-    (tests run a reduced config on a small mesh)."""
+    (tests run a reduced config on a small mesh): ``(data, model)``, or
+    ``(pod, data, model)`` for the multi-pod mesh's three axes."""
     cfg = cfg or get_config(arch)
     cell = [s for s in SHAPES if s.shape == shape_name][0]
     skip = cell_applicable(cfg, cell)
@@ -129,7 +130,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         mesh_name = MESHES[multi_pod][0]
     else:
-        mesh = make_host_mesh(*mesh_shape, device_type="cpu")
+        *pod, data, model = mesh_shape
+        mesh = make_host_mesh(data, model, device_type="cpu",
+                              pod=pod[0] if pod else None)
         mesh_name = "x".join(str(n) for n in mesh_shape)
     L.clear_device_caches()
     try:

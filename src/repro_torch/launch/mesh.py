@@ -48,15 +48,24 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def make_host_mesh(data: int = 1, model: int = 1,
-                   device_type: Optional[str] = None):
+                   device_type: Optional[str] = None, *,
+                   pod: Optional[int] = None):
     """A small ("data", "model") mesh over the default process group,
     clamped to its world size as the reference clamps to its devices:
-    ``data`` at most the world, ``model`` at most what is left.  The
-    mesh takes the first ``data * model`` ranks."""
+    ``data`` at most the world, ``model`` at most what is left.  With
+    ``pod`` a ("pod", "data", "model") mesh, the production multi-pod
+    mesh's axes (``pod`` clamped first, then ``data`` and ``model`` to
+    what is left).  The mesh takes the first ranks of the group."""
     from torch.distributed.device_mesh import DeviceMesh
     n = _world()
+    lead, names = (), ("data", "model")
+    if pod is not None:
+        pod = max(1, min(pod, n))
+        n //= pod
+        lead, names = (pod,), ("pod", "data", "model")
     data = min(data, n)
     model = max(1, min(model, n // data))
-    ranks = torch.arange(data * model).reshape(data, model)
+    shape = lead + (data, model)
+    ranks = torch.arange(math.prod(shape)).reshape(shape)
     return DeviceMesh(_device_type(device_type), ranks,
-                      mesh_dim_names=("data", "model"))
+                      mesh_dim_names=names)

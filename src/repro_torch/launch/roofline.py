@@ -5,7 +5,8 @@ The port of ``repro.launch.roofline``.  Reads the port's dry-run records
 MODEL_FLOPS (6·N·T for training, N the active params for MoE; 2·N_active
 per prefilled or generated token for serving), the three roofline terms
 at the H100's spec-sheet rates (``launch/cost.py``), the useful-compute
-ratio and the dominant bottleneck per cell; writes
+ratio and the dominant bottleneck per cell, and the whole sweep's tables
+(``sweep_summary``: both meshes and variants); writes
 ``experiments/roofline_torch.md``.
 
     PYTHONPATH=src python -m repro_torch.launch.roofline
@@ -74,6 +75,74 @@ def _frac(rec, arch, shape):
     return (mf / PEAK_FLOPS) / max(rec["roofline"]["bound_s"], 1e-12)
 
 
+MESHES = ("16x16", "2x16x16")   # the dry-run's production meshes
+VARIANTS = {"base": "dryrun_torch", "opt": "dryrun_torch_opt"}
+
+
+def _cell(rec, arch, shape) -> str:
+    """One traced cell: flop, HBM bytes and collective wire bytes a
+    device, the dominant term and its bound, the useful share (model
+    flops a device over the counted flop) and, for training, argument
+    plus peak live bytes a device (GB)."""
+    r = rec["roofline"]
+    mf = model_flops(arch, shape) / rec["n_chips"]
+    out = (f"{rec['cost_flops']:.2e} / {rec['cost_bytes_accessed']:.2e} / "
+           f"{rec['collective_wire_bytes']:.2e}; {r['dominant'][:4]} "
+           f"{r['bound_s']:.4g} s; u {mf / rec['cost_flops']:.3f}")
+    if rec["kind"] == "train":
+        ma = rec["memory_analysis"]
+        peak = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+        out += f"; {peak / 1e9:.1f} GB"
+    return out
+
+
+def sweep_summary() -> str:
+    """The whole sweep in two tables: the records' status counts for
+    each mesh and variant, then every cell (arch x shape) in each mesh
+    and variant: ``_cell`` where it traced, the status otherwise, "=
+    base" where the opt variant counted the same as the base; the SKIP
+    rows by reason."""
+    recs = {v: load_records(d) for v, d in VARIANTS.items()}
+    lines = ["| mesh | variant | OK | SKIP | FAIL | cells |",
+             "|---|---|---|---|---|---|"]
+    for v in VARIANTS:
+        for m in MESHES:
+            st = [r.get("status") for (mm, _, _), r in recs[v].items()
+                  if mm == m]
+            lines.append(f"| {m} | {v} | {st.count('OK')} | "
+                         f"{st.count('SKIP')} | "
+                         f"{len(st) - st.count('OK') - st.count('SKIP')} | "
+                         f"{len(st)} |")
+    cols = [(m, v) for m in MESHES for v in VARIANTS]
+    lines += ["", "| arch | shape | " + " | ".join(
+        f"{m} {v}" for m, v in cols) + " |",
+        "|---|---|" + "---|" * len(cols)]
+    cells = sorted({(a, s) for v in VARIANTS for (_, a, s) in recs[v]})
+    skips = {}
+    for a, s in cells:
+        row = [recs[v].get((m, a, s), {}) for m, v in cols]
+        if all(r.get("status") == "SKIP" for r in row):
+            skips.setdefault(row[0]["reason"], []).append(f"{a} x {s}")
+            continue
+        text = []
+        for (m, v), r in zip(cols, row):
+            base = recs["base"].get((m, a, s), {})
+            if r.get("status") != "OK":
+                text.append(r.get("status", "missing"))
+            elif v != "base" and base.get("status") == "OK" and all(
+                    r[k] == base[k] for k in ("cost_flops",
+                                              "cost_bytes_accessed",
+                                              "collective_wire_bytes")):
+                text.append("= base")
+            else:
+                text.append(_cell(r, a, s))
+        lines.append(f"| {a} | {s} | " + " | ".join(text) + " |")
+    for reason, names in skips.items():
+        lines.append(f"\nSKIP in every mesh and variant ({reason}): "
+                     + ", ".join(names) + ".")
+    return "\n".join(lines) + "\n"
+
+
 def build_report() -> str:
     recs = load_records()
     lines = [f"# Roofline analysis (per device; NVIDIA H100 80GB HBM3, "
@@ -125,6 +194,10 @@ def build_report() -> str:
         lines.append(f"* worst roofline fraction: {worst[1]} x {worst[2]} "
                      f"({_frac(singles[worst], worst[1], worst[2]) * 100:.2f}%)")
         lines.append(f"* most collective-bound: {coll[1]} x {coll[2]}")
+    lines.append("\n## The sweep (flop / HBM bytes / wire bytes a device; "
+                 "dominant term, bound; useful share; train: argument + "
+                 "peak live bytes, beside one H100's 80 GB)\n")
+    lines.append(sweep_summary())
     opt = load_records("dryrun_torch_opt")
     if opt:
         lines.append("\n## Optimized variant (--variant opt) vs baseline\n")

@@ -159,8 +159,17 @@ def expert_ffn(cfg: ModelConfig, p: Dict, buf: torch.Tensor) -> torch.Tensor:
 def combine(cfg: ModelConfig, p: Dict, r: Routing, out_buf: torch.Tensor,
             xf: torch.Tensor) -> torch.Tensor:
     """Each token's kept experts' outputs, weighted by the gates in the
-    activation dtype and summed over K, plus the shared experts."""
+    activation dtype and summed over K, plus the shared experts.
+    Unpinned (no ``moe_local_dispatch``), a DTensor ``out_buf`` is
+    gathered whole on every rank first, as the dispatch's buffer is, so
+    the gathered rows keep the tokens' batch split: indexed while split
+    over experts, DTensor split the rows over "model" too, which the
+    caller's reshape to (B, S, D) refuses and whose gradient a view's
+    backward turns into a strided shard that a shape-only trace cannot
+    gather."""
     T, K, D = xf.shape[0], cfg.experts_per_tok, xf.shape[1]
+    if dt.is_dtensor(out_buf) and not opt_flags.FLAGS.moe_local_dispatch:
+        out_buf = dt.replicate(out_buf)
     gathered = _constrain(
         out_buf[r.eidx.reshape(-1), torch.where(r.keep, r.pos, 0)],
         ("data_batch", None))

@@ -9,6 +9,8 @@ port's one-device step and the reference's one-device
   so wk/wv are replicated while wq is split (the GQA case);
 * falcon-mamba-7b on (2, 2): the scan local over batch and d_inner;
 * olmoe-1b-7b on (2, 2), with ``moe_local_dispatch`` on and off;
+* kimi-k2-1t-a32b on (1, 4): two of its 8 experts a rank, the unpinned
+  dispatch, its outputs gathered from the expert-split buffer;
 * granite-3-8b's decode step on a cache whose sequence the rules split
   over "model", on (2, 2) and (1, 4) (where two ranks hold no position
   yet): the ``paged_attention`` wrapper on each rank's shards, merged by
@@ -36,6 +38,7 @@ CASES = {  # name: (arch, mesh, microbatches)
     "granite": ("granite-3-8b", (1, 4), 1),
     "mamba": ("falcon-mamba-7b", (2, 2), 1),
     "olmoe": ("olmoe-1b-7b", (2, 2), 1),
+    "kimi": ("kimi-k2-1t-a32b", (1, 4), 1),
 }
 CELL = ("t", 32, 8, "train")   # seq 32, global batch 8
 RESTORE_MESHES = ((1, 4), (4, 1))

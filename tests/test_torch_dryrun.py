@@ -133,9 +133,12 @@ def test_a_dtensor_reaching_a_kernel_wrapper_raises(records):
                                   "paged_attention"]
 
 
-def _reference_fallbacks(shape, variant):
-    """The fallbacks the reference's rules record for the cell, as its
-    dry-run computes them, on an abstract (4, 2) mesh."""
+def _reference_fallbacks(shape, variant, arch=ARCH, cfg=None,
+                         mesh_shape=(4, 2)):
+    """The fallbacks the reference's rules record for ``arch``'s cell, as
+    its dry-run computes them, for its config ``cfg`` (by default the
+    reduced one) on an abstract mesh of ``mesh_shape``: (data, model), or
+    (pod, data, model)."""
     from repro.configs import get_config, reduced
     from repro.launch import specs
     from repro.launch.dryrun import flags_for
@@ -144,15 +147,17 @@ def _reference_fallbacks(shape, variant):
     from repro.models.model import build
     from repro.sharding import rules
 
-    cfg = reduced(get_config(ARCH))
+    cfg = cfg or reduced(get_config(arch))
     api = build(cfg)
     cell = shape_by_name(shape)
+    names = ("data", "model") if len(mesh_shape) == 2 else \
+        ("pod", "data", "model")
     try:
-        mesh = jax.sharding.AbstractMesh((4, 2), ("data", "model"))
+        mesh = jax.sharding.AbstractMesh(tuple(mesh_shape), names)
     except TypeError:
-        mesh = jax.sharding.AbstractMesh((("data", 4), ("model", 2)))
+        mesh = jax.sharding.AbstractMesh(tuple(zip(names, mesh_shape)))
     log = rules.RuleLog()
-    with opt_flags.use_flags(**flags_for(ARCH, shape, variant)):
+    with opt_flags.use_flags(**flags_for(arch, shape, variant)):
         params = jax.eval_shape(api.init, jax.random.PRNGKey(0))
         ps = rules.param_specs(cfg, mesh, params, log)
         rules.batch_specs(cfg, mesh, specs.batch_shapes(cfg, cell), log)
@@ -252,3 +257,42 @@ def test_each_kernel_is_one_op_charged_by_name_in_a_shape_only_trace():
     assert counts == (fops.launch_count, fops.bwd_launch_count,
                       sops.launch_count, sops.bwd_launch_count,
                       pops.launch_count)
+
+
+def test_sweep_summary_counts_every_record(tmp_path, monkeypatch):
+    """``roofline.sweep_summary`` (the table PERF.md keeps) counts each
+    mesh's and variant's records by status and gives each cell its
+    per-device counts, useful share and training bytes, "= base" where
+    the opt variant counted the same, and the SKIPs by reason."""
+    from repro_torch.launch import roofline
+    monkeypatch.setattr(roofline, "OUT_DIR", tmp_path)
+    ok = {"status": "OK", "n_chips": 256, "kind": "train",
+          "cost_flops": 2.0e13, "cost_bytes_accessed": 3.0e12,
+          "collective_wire_bytes": 4.0e10,
+          "roofline": {"dominant": "memory", "bound_s": 0.25},
+          "memory_analysis": {"argument_size_in_bytes": 1.5e9,
+                              "temp_size_in_bytes": 8.5e9}}
+    skip = {"status": "SKIP", "reason": "why"}
+    recs = {("dryrun_torch", "16x16", "train_4k"): ok,
+            ("dryrun_torch_opt", "16x16", "train_4k"): ok,
+            ("dryrun_torch", "16x16", "long_500k"): skip,
+            ("dryrun_torch_opt", "16x16", "long_500k"): skip,
+            ("dryrun_torch", "2x16x16", "long_500k"): skip,
+            ("dryrun_torch_opt", "2x16x16", "long_500k"): skip,
+            ("dryrun_torch", "2x16x16", "train_4k"): {"status": "FAIL"}}
+    for (var, mesh, shape), rec in recs.items():
+        d = tmp_path / var / mesh
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"olmo-1b__{shape}.json").write_text(json.dumps(rec))
+    text = roofline.sweep_summary()
+    lines = text.splitlines()
+    assert "| 16x16 | base | 1 | 1 | 0 | 2 |" in lines
+    assert "| 2x16x16 | base | 0 | 1 | 1 | 2 |" in lines
+    assert "| 2x16x16 | opt | 0 | 1 | 0 | 1 |" in lines
+    u = roofline.model_flops("olmo-1b", "train_4k") / 256 / 2.0e13
+    row = [ln for ln in lines if ln.startswith("| olmo-1b | train_4k |")]
+    assert row == [
+        f"| olmo-1b | train_4k | 2.00e+13 / 3.00e+12 / 4.00e+10; memo "
+        f"0.25 s; u {u:.3f}; 10.0 GB | = base | FAIL | missing |"]
+    assert text.endswith("SKIP in every mesh and variant (why): "
+                         "olmo-1b x long_500k.\n")
