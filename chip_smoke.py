@@ -33,7 +33,8 @@ started together):
   engine's tokens to a fault-free twin's and a teacher-forced prefill;
 * the SSM and hybrid models through the model API (``prefill``, then
   greedy ``decode`` steps): ``falcon-mamba-7b`` and ``zamba2-2.7b`` at
-  full width and depth (random bf16 weights), Mamba1's selective scan
+  full width, 24 of their 64 and 54 layers for the script's time
+  (random bf16 weights), Mamba1's selective scan
   through the ``mamba_scan`` kernel and the hybrid's shared attention
   block through ``flash_attention`` (prefill) and ``paged_attention``
   (decode, on its KV cache seen as one page a sequence).  The scan
@@ -53,11 +54,12 @@ started together):
   path against a teacher-forced prefill on a dropless fp32 cut, and
   llava's patch prefill on the card against the port on the CPU;
 * the contiguous-cache decode and the encoder-decoder through the model
-  API: ``granite-3-8b`` at full width and depth, one prefill and greedy
-  ``decode`` steps over its contiguous KV cache (``paged_attention`` on
-  the cache seen as one page a sequence), its decode and the buffered
-  decode (a ring committed to a head-major base) held against a
-  teacher-forced prefill and each other on a 4-layer fp32 cut; and
+  API: ``granite-3-8b`` at full width, 20 of its 40 layers, one prefill
+  and greedy ``decode`` steps over its contiguous KV cache
+  (``paged_attention`` on the cache seen as one page a sequence), its
+  decode and the buffered decode (a ring committed to a head-major base)
+  held against a teacher-forced prefill and each other on a 4-layer fp32
+  cut; and
   ``whisper-tiny`` at its published size on 8 clips of 1,500 stub frame
   embeddings, the encoder, the decoder's prompt and its cross-attention
   through ``flash_attention`` (Sq != Skv) and greedy decode through
@@ -104,7 +106,7 @@ line.  Any mismatch or error exits non-zero before the result line, and
 so does a machine without CUDA.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --previous DIR   # the six kernels of the
+    python3 chip_smoke.py --previous DIR   # the kernels of the
                                            # checkout DIR beside these
 """
 
@@ -198,12 +200,14 @@ WGMMA_KV_TILE = 128     # flash_attention.cu kBN: KV rows per bf16 tile
 SERVE = dict(block_size=16, hbm_blocks=1024, max_batch=8,
              max_blocks_per_seq=160)
 # serve_main (and chaos_path on its model): granite-3-8b at full width,
-# 10 of its 40 layers, for the script's time; dense_generate runs all 40
+# 10 of its 40 layers, for the script's time; dense_generate runs 20
 SERVE_LAYERS = 10
-# the script's time: the depth of two earlier paths cut, every kernel and
+# the script's time: the depth of earlier paths cut, every kernel and
 # gate kept (zamba2's shared block still runs 4 times a pass)
 MOE_LAYERS = 4              # moe_main: olmoe-1b-7b, 16 layers -> 4
 HYBRID_LAYERS = 24          # hybrid_main: zamba2-2.7b, 54 layers -> 24
+SSM_LAYERS = 24             # ssm_main: falcon-mamba-7b, 64 layers -> 24
+DENSE_LAYERS = 20           # dense_generate: granite-3-8b, 40 layers -> 20
 TOKEN_BUDGET = 16_384       # prefill tokens one scheduler tick may commit
 PREFIX_LEN, N_PREFIXES = 1024, 4
 SUFFIX = (64, 960)          # unique suffix length range, inclusive
@@ -1730,6 +1734,24 @@ def _load_module(path: str, name: str):
     return mod
 
 
+def _load_previous(path: str, name: str):
+    """``_load_module`` for a module of an earlier checkout: its
+    ``torch.library`` operators are registered as ``repro_torch_previous::``
+    ones.  A second ``custom_op`` of one name takes the first one's place
+    for every caller, so under the present names the present wrappers
+    would launch the earlier tree's kernels."""
+    real = torch.library.custom_op
+
+    def renamed(qualname, *args, **kw):
+        return real(qualname.replace("repro_torch::", "repro_torch_previous::",
+                                     1), *args, **kw)
+    torch.library.custom_op = renamed
+    try:
+        return _load_module(path, name)
+    finally:
+        torch.library.custom_op = real
+
+
 def attn_previous(dev, tree: str):
     """The two attention kernels of another checkout ``tree`` (an earlier
     commit) timed beside the present ones in the same way as
@@ -1754,10 +1776,10 @@ def attn_previous(dev, tree: str):
 
     kdir = os.path.join(os.path.abspath(tree), "src", "repro_torch",
                         "kernels")
-    old_f = _load_module(os.path.join(kdir, "flash_attention", "ops.py"),
-                         "previous_flash_ops")
-    old_p = _load_module(os.path.join(kdir, "paged_attention", "ops.py"),
-                         "previous_paged_ops")
+    old_f = _load_previous(os.path.join(kdir, "flash_attention", "ops.py"),
+                           "previous_flash_ops")
+    old_p = _load_previous(os.path.join(kdir, "paged_attention", "ops.py"),
+                           "previous_paged_ops")
     old_bwd = getattr(old_f, "BWD_SOURCE", None)
     t0 = time.perf_counter()
     kbuild.build_many([("flash_attention", fops.SOURCE),
@@ -2527,8 +2549,8 @@ def previous_cache_sim(tree: str):
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.cache_sim import build as cbuild
 
-    old = _load_module(os.path.join(_kernel_dir(tree), "cache_sim",
-                                    "build.py"), "previous_cache_sim_build")
+    old = _load_previous(os.path.join(_kernel_dir(tree), "cache_sim",
+                                      "build.py"), "previous_cache_sim_build")
     lib = kbuild.load("cache_sim", old.SOURCE, old.SYMBOLS)
     n_args = len(old.SYMBOLS["cache_sim_launch"])
     require(n_args in (28, len(cbuild.SYMBOLS["cache_sim_launch"])),
@@ -2671,11 +2693,11 @@ def policy_launchers(tree: str = None):
     mods, libs = {}, {}
     for name in ("s3fifo_sim", "simple_sim"):
         kdir = os.path.join(_kernel_dir(tree), name)
-        old = _load_module(os.path.join(kdir, "build.py"),
-                           f"previous_{name}_build")
+        old = _load_previous(os.path.join(kdir, "build.py"),
+                             f"previous_{name}_build")
         libs[name] = kbuild.load(name, old.SOURCE, old.SYMBOLS)
-        mods[name] = _load_module(os.path.join(kdir, "ops.py"),
-                                  f"previous_{name}_ops")
+        mods[name] = _load_previous(os.path.join(kdir, "ops.py"),
+                                    f"previous_{name}_ops")
         mods[name + ".source"] = str(old.SOURCE)
 
     def prepare(family, state, trace):
@@ -2885,10 +2907,11 @@ def previous_scan_ops(tree: str):
     kdir = os.path.join(_kernel_dir(tree), "mamba_scan")
     name = "repro_torch.kernels.mamba_scan.ref"
     present = sys.modules.get(name)
-    sys.modules[name] = _load_module(os.path.join(kdir, "ref.py"),
-                                     "previous_scan_ref")
+    sys.modules[name] = _load_previous(os.path.join(kdir, "ref.py"),
+                                       "previous_scan_ref")
     try:
-        return _load_module(os.path.join(kdir, "ops.py"), "previous_scan_ops")
+        return _load_previous(os.path.join(kdir, "ops.py"),
+                              "previous_scan_ops")
     finally:
         if present is None:
             del sys.modules[name]
@@ -2909,7 +2932,7 @@ def scan_previous(dev, tree: str):
     the plain backward on fp32 copies (max and mean |err|).  ``bit_equal``:
     the two trees' outputs (the backward's: its states too) equal bit for
     bit.  A tree whose scan has no backward is timed on the forward
-    alone."""
+    alone; where it has the bf16 scan, ``scan_bf16_previous`` follows."""
     from repro_torch.kernels.mamba_scan import ops as sops
     from repro_torch.kernels.mamba_scan.ref import (
         mamba_scan_bwd_plain, mamba_scan_plain,
@@ -2968,6 +2991,92 @@ def scan_previous(dev, tree: str):
         got["previous"], got["present"])) and all(
         torch.equal(a, b) for a, b in zip(states["previous"],
                                           states["present"]))
+    del ins, dy, states, got, want
+    if hasattr(old, "bf16_launch_count"):
+        rec["bf16"] = scan_bf16_previous(dev, old, flush)
+    return rec
+
+
+def scan_bf16_previous(dev, old, flush) -> dict:
+    """The bf16 scan's kernels of an earlier tree (``old``: its
+    ``mamba_scan/ops.py``) beside the present ones: the forward at
+    ``SCAN_MAIN`` and the backward at ``SCAN_TRAIN_SHAPE`` (bf16 u/B/C as
+    views of x_proj's output, fp32 dt, bf16 dy, C ``SCAN_BF16_CHUNK``),
+    medians of 10 and 5, the L2 emptied by a 1 GiB read (``flush``),
+    earlier, present, present, earlier, each tree's backward from its own
+    forward's states; and whether the two trees' outputs are equal bit for
+    bit (``unequal`` names any that are not): y, h_last and the states of
+    the forward (and y, h_last of its kernel without states) at every
+    ``SCAN_BF16_CASES`` case and the timed shape, the states and du, ddt,
+    dB, dC and dA_log of the backward at every ``SCAN_BF16_BWD_CASES``
+    case and the timed shape."""
+    from repro_torch.kernels.mamba_scan import ops as sops
+
+    trees = dict(previous=old, present=sops)
+    order = ["previous", "present", "present", "previous"]
+    gen = torch.Generator(device=dev).manual_seed(31)
+    C = SCAN_BF16_CHUNK
+    unequal = []
+
+    def same(name, outs):
+        a, b = outs["previous"], outs["present"]
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            unequal.append(name)
+
+    def case_inputs(case):
+        B, S, din, N, dt_name, dtd_name = case[:6]
+        ins = list(scan_inputs_on(dev, (B, S, din, N),
+                                  getattr(torch, dt_name), gen, R=case[7]))
+        ins[1] = ins[1].to(getattr(torch, dtd_name))
+        return ins
+
+    for case in SCAN_BF16_CASES:
+        ins, cc = case_inputs(case), case[6]
+        same(f"forward {case}", {k: m.mamba_scan_fwd(*ins, cc)
+                                 for k, m in trees.items()})
+        same(f"forward, no states, {case}", {k: m.mamba_scan(*ins, cc)
+                                             for k, m in trees.items()})
+    for case in SCAN_BF16_BWD_CASES:
+        ins, cc = case_inputs(case), case[6]
+        B, S, din, N = case[:4]
+        dy = torch.randn((B, S, din), generator=gen, device=dev).to(
+            ins[0].dtype)
+        dh = (torch.randn((B, din, N), generator=gen, device=dev)
+              if case[8] else None)
+        st = {k: m.mamba_scan_fwd(*ins, cc)[2] for k, m in trees.items()}
+        same(f"states {case}", {k: [v] for k, v in st.items()})
+        same(f"backward {case}", {k: m.mamba_scan_bwd(*ins, st[k], dy, dh, cc)
+                                  for k, m in trees.items()})
+    del ins, dy, dh, st
+    shape = lambda s: (f"bf16 u/B/C (B/C views of x_proj's output), fp32 dt,"
+                       f" (B, S, din, N) = {s}, C {C}")
+    ins = scan_inputs_on(dev, SCAN_MAIN, torch.bfloat16, gen, R=SCAN_DT_RANK)
+    fwd = {k: (lambda m=m: m.mamba_scan(*ins, C)) for k, m in trees.items()}
+    ms = [statistics.median(warm_ms(fwd[k], flush, 10)) for k in order]
+    same("forward, timed shape", {k: f() for k, f in fwd.items()})
+    same("forward with states, timed shape",
+         {k: m.mamba_scan_fwd(*ins, C) for k, m in trees.items()})
+    rec = dict(fwd=dict(shape=shape(SCAN_MAIN), order=order,
+                        previous_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]],
+                        plan=sops.bf16_plan(*SCAN_MAIN, C)._asdict()))
+    del ins, fwd
+    ins = scan_inputs_on(dev, SCAN_TRAIN_SHAPE, torch.bfloat16, gen,
+                         R=SCAN_DT_RANK)
+    dy = torch.randn(ins[0].shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    st = {k: m.mamba_scan_fwd(*ins, C)[2] for k, m in trees.items()}
+    same("states, timed shape", {k: [v] for k, v in st.items()})
+    bwd = {k: (lambda m=m, s=st[k]: m.mamba_scan_bwd(*ins, s, dy, None, C))
+           for k, m in trees.items()}
+    ms = [statistics.median(warm_ms(bwd[k], flush, 5)) for k in order]
+    same("backward, timed shape", {k: f() for k, f in bwd.items()})
+    rec["bwd"] = dict(shape=shape(SCAN_TRAIN_SHAPE) + ", bf16 dy",
+                      order=order, previous_ms=[ms[0], ms[3]],
+                      ms=[ms[1], ms[2]],
+                      plan=sops.bwd_plan(*SCAN_TRAIN_SHAPE)._asdict())
+    rec.update(unequal=unequal, bit_equal=not unequal)
+    del ins, dy, st, bwd
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -4539,7 +4648,8 @@ def scan_bf16_case(dev, case, gen, faults: bool = False) -> dict:
     y0, h0, st0 = mamba_scan_bf16_plain(*ins, C, chunk_states=True)
     rec = dict(B=B, S=S, din=din, N=N, dtype=dt_name, dt_dtype=dtd_name,
                chunk=C, bc_stride_t=int(ins[2].stride(1)),
-               split=sops.bf16_split(N), launches=launches,
+               plan=sops.bf16_plan(B, S, din, N, C)._asdict(),
+               launches=launches,
                y=scan_bf16_use(y, y0, y0.dtype == torch.bfloat16),
                h_last=scan_bf16_use(h, h0),
                states=scan_bf16_use(st, st0),
@@ -5592,7 +5702,7 @@ def main() -> int:
     returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--previous", metavar="DIR",
-                    help="only time the six kernels of the checkout DIR "
+                    help="only time the kernels of the checkout DIR "
                          "(an earlier commit) beside the present ones")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5633,7 +5743,10 @@ def main() -> int:
             + [(k, pathlib.Path(kdir, k, "csrc", f"{k}.cu")) for k in (
                 "cache_sim", "mamba_scan", "flash_attention",
                 "paged_attention", "s3fifo_sim", "simple_sim")]
-            + ([("mamba_scan_bwd", prev_bwd)] if prev_bwd.exists() else []))
+            + ([("mamba_scan_bwd", prev_bwd)] if prev_bwd.exists() else [])
+            + [("mamba_scan_bf16", p) for p in (
+                sops.BF16_SOURCE, prev_bwd.with_name("mamba_scan_bf16.cu"))
+               if p.exists()])
         emit(attn_previous(dev, args.previous))
         emit(scan_previous(dev, args.previous))
         named = {name: tr for name, tr in suite_traces(traces)
@@ -5904,7 +6017,8 @@ def main() -> int:
     # -- the SSM and hybrid paths: scan kernel, both models, consistency -------
     scan_check = mamba_scan_vs_plain(dev)
     emit(scan_check)
-    ssm = generate_main(dev, "falcon-mamba-7b", "ssm_main")
+    ssm = generate_main(dev, "falcon-mamba-7b", "ssm_main",
+                        layers=SSM_LAYERS)
     ssm_launches = ssm["launches"]
     want = dict(mamba_scan=ssm["n_layers"], flash_attention=0,
                 paged_attention=0)
@@ -5939,7 +6053,8 @@ def main() -> int:
     emit(vlm_consistency(dev))
 
     # -- the contiguous-cache decode and the encoder-decoder -------------------------
-    dense = generate_main(dev, "granite-3-8b", "dense_generate")
+    dense = generate_main(dev, "granite-3-8b", "dense_generate",
+                          layers=DENSE_LAYERS)
     want = dict(mamba_scan=0, flash_attention=dense["n_layers"],
                 paged_attention=GEN_STEPS * dense["n_layers"])
     require(dense["launches"] == want,

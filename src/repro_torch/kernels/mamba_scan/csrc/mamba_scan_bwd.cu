@@ -10,7 +10,11 @@
 // through its roundings: the same recurrence on a_t = bf16(expf(dt_t A))
 // and bf16(dt_t u_t B_t), C_t rounded to bf16, and h_{t-1} rounded to bf16
 // where t starts a chunk (the forward's carry); the states it starts from
-// are that kernel's.
+// are that kernel's.  Under kBf16 the decays of a sub-chunk's 4 steps are
+// made at its start (scan.cuh's decay2, bf16(expf(dt A))) as bf16 pairs
+// in registers: the recompute's are kept for the walk, so a state-step
+// takes 1.75 decays (the first pass's and the recompute's), not 2.75; dt
+// u B is rounded two values a conversion.
 // With A = -exp(A_log), a_t = exp(dt_t A) and g_t the gradient reaching the
 // state h_t, it walks the sequence backwards:
 //
@@ -44,7 +48,8 @@
 // one ex2.approx of dt A log2 e) into a buffer of h_t (4 steps x 8 states x
 // 128 threads, rows padded to 132 floats) and walked in reverse.  The
 // walk reads h_{t-1} there, evaluates a_t again (cheaper than keeping it,
-// PERF.md), writes g_t into a second such buffer, and sums du_t and ddt_t
+// PERF.md; under kBf16 it reuses the recompute's, 16 registers of bf16
+// pairs), writes g_t into a second such buffer, and sums du_t and ddt_t
 // over a channel's two threads with one __shfl_xor_sync each, nothing
 // across channels.  After the walk the block
 // sums dC_t[n] = sum_d dy_t[d] h_t[d, n] and dB_t[n] = sum_d (dt u)_t[d]
@@ -72,13 +77,19 @@
 // needs B S din N = 2.15e9 exponentials, 0.51 ms at the special-function
 // units' 16 a clock per SM: bytes, narrowly.  This design evaluates 2.75
 // exponentials a state-step (the first pass over 12 of each 16 steps, the
-// recompute, the walk) and no cross-channel shuffle in the walk, whose
-// steps the compiler unrolls.  What binds it is the SM: shared-memory
+// recompute, the walk; 1.75 under kBf16, above) and no cross-channel
+// shuffle in the walk, whose steps the compiler unrolls.  What binds it is the SM: shared-memory
 // traffic (h stored, read back by the walk and the sums; g stored and
 // read by the sums; each thread's B and C values each step) and the issue
 // slots, with 4 warps a scheduler to hide latency.  The partials are 268
 // MB written and read at this shape.  PERF.md has the measured time, the
-// SASS counts and the rejected designs.
+// SASS counts and the rejected designs.  Under kBf16 (the same bytes and
+// exponentials) it takes 5.45-5.82 ms on "NVIDIA H100 80GB HBM3, 700.00
+// W" (the 2.75-decay design 7.37-7.57 in the same run): 69.5 SASS a
+// state-step against 81.6 (the first pass 23.0 over 12 of each 16 steps,
+// the walk's sub-chunk 52.3; tools/scan_bf16_probe.py --sass).  The
+// decays' exponentials are not what binds it: with ex2.approx in the
+// place of expf (wrong bits) it took 4.6-4.9 ms.
 
 #include <cstdint>
 
@@ -175,6 +186,24 @@ __device__ __forceinline__ void ld4(float* v, const float* p) {
 }
 __device__ __forceinline__ void st4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Under kBf16, a step's terms of this thread's NT states from its decays
+// `ap` (bf16 pairs, sub_decays in the kernel): a = bf16(expf(dt A)) and dt
+// u B rounded to bf16, two a conversion.
+template <int NT>
+__device__ __forceinline__ void bf16_terms(const uint32_t (&ap)[NT / 2],
+                                           float dtu, const float (&bv)[NT],
+                                           float (&a)[NT], float (&e)[NT]) {
+#pragma unroll
+  for (int p = 0; p < NT / 2; ++p) {
+    const uint32_t ep = scan::pack_bf16x2(__fmul_rn(dtu, bv[2 * p]),
+                                          __fmul_rn(dtu, bv[2 * p + 1]));
+    a[2 * p] = scan::lo_f(ap[p]);
+    a[2 * p + 1] = scan::hi_f(ap[p]);
+    e[2 * p] = scan::lo_f(ep);
+    e[2 * p + 1] = scan::hi_f(ep);
+  }
 }
 
 // One TMA box of a 3-d tensor map (coordinates innermost first) into
@@ -319,6 +348,20 @@ mamba_scan_bwd_kernel(
     dtv = to_f(reinterpret_cast<const TD*>(rdt + slot * kRowSlot)[i]);
     dtu = dtv * to_f(reinterpret_cast<const T*>(ru + slot * kRowSlot)[i]);
   };
+  // Under kBf16, the decays of the kSub steps of the stage in ring slot
+  // `slot` (zeros past S: a decay of 1), as bf16 pairs, bf16(expf(dt A)).
+  // The recompute's are kept for the walk.
+  auto sub_decays = [&](int slot, uint32_t (&ap)[kSub][NT / 2]) {
+    const TD* sdt = reinterpret_cast<const TD*>(rdt + slot * kRowSlot) + cl;
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) {
+      const float dtv = to_f(sdt[j * kCh]);
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p)
+        ap[j][p] = scan::decay2(__fmul_rn(dtv, A2[2 * p]),
+                                __fmul_rn(dtv, A2[2 * p + 1]));
+    }
+  };
   // Under kBf16, the steps of the sub-chunk from step ts that start a
   // chunk, as bits (one division a sub-chunk; ts is the same in every
   // thread); and h_{t-1} as its step j reads it: rounded to bf16 where bit
@@ -425,6 +468,8 @@ mamba_scan_bwd_kernel(
         const int cur = phase ^ 1;
         const T* sb = reinterpret_cast<const T*>(rb + cur * kBSlot) + n0;
         const unsigned starts = starts_of(t0 + s * kSub);
+        uint32_t ap[kSub][NT / 2];
+        if constexpr (kBf16) sub_decays(cur, ap);
 #pragma unroll
         for (int j = 0; j < kSub; ++j) {
           float dtv, dtu;
@@ -432,10 +477,17 @@ mamba_scan_bwd_kernel(
           float bv[NT];
           row_f<T, NT>(sb + j * kBR, bv);
           carry_in(starts, j, h);
+          if constexpr (kBf16) {
+            float a[NT], e[NT];
+            bf16_terms(ap[j], dtu, bv, a, e);
 #pragma unroll
-          for (int i = 0; i < NT; ++i)
-            h[i] = scan::scan_step<kBf16>(scan::decay<kBf16>(dtv, A2[i]),
-                                          h[i], dtu, bv[i]);
+            for (int i = 0; i < NT; ++i) h[i] = __fmaf_rn(a[i], h[i], e[i]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < NT; ++i)
+              h[i] = scan::scan_step(scan::decay(dtv, A2[i]), h[i], dtu,
+                                     bv[i]);
+          }
         }
 #pragma unroll
         for (int i = 0; i < NT; i += 4)
@@ -465,6 +517,8 @@ mamba_scan_bwd_kernel(
       const long long ts = t0 + s * kSub;
       const int ss = min(kSub, steps - s * kSub);
       const unsigned starts = starts_of((int)ts);
+      uint32_t ap[kSub][NT / 2];   // under kBf16 the decays, for the walk too
+      if constexpr (kBf16) sub_decays(cur, ap);
       // Recompute h_t of the sub-chunk into this thread's columns.
       {
         float hr[NT];
@@ -478,20 +532,31 @@ mamba_scan_bwd_kernel(
             float bv[NT];
             row_f<T, NT>(sb + j * kBR, bv);
             carry_in(starts, j, hr);
+            if constexpr (kBf16) {
+              float a[NT], e[NT];
+              bf16_terms(ap[j], dtu, bv, a, e);
 #pragma unroll
-            for (int i = 0; i < NT; ++i) {
-              hr[i] = scan::scan_step<kBf16>(scan::decay<kBf16>(dtv, A2[i]),
-                                             hr[i], dtu, bv[i]);
-              hbuf[(j * NT + i) * kPitch + tid] = hr[i];
+              for (int i = 0; i < NT; ++i) {
+                hr[i] = __fmaf_rn(a[i], hr[i], e[i]);
+                hbuf[(j * NT + i) * kPitch + tid] = hr[i];
+              }
+            } else {
+#pragma unroll
+              for (int i = 0; i < NT; ++i) {
+                hr[i] = scan::scan_step(scan::decay(dtv, A2[i]), hr[i], dtu,
+                                        bv[i]);
+                hbuf[(j * NT + i) * kPitch + tid] = hr[i];
+              }
             }
           }
         }
       }
       // Walk back: g_t (into this thread's column), du_t, ddt_t, the dA
       // sums and the carry, a_t evaluated again (cheaper than a round trip
-      // through shared memory); the channel's dy and dt u for the column
-      // sums.  Step j reads h_{t-1} from row j - 1 (hp: hs at j = 0, the
-      // step peeled off the loop, which the compiler unrolls).
+      // through shared memory; under kBf16 the recompute's, ap); the
+      // channel's dy and dt u for the column sums.  Step j reads h_{t-1}
+      // from row j - 1 (hp: hs at j = 0, the step peeled off the loop,
+      // which the compiler unrolls).
       const T* su = reinterpret_cast<const T*>(ru + cur * kRowSlot) + cl;
       const TD* sdt = reinterpret_cast<const TD*>(rdt + cur * kRowSlot) + cl;
       const T* sdy = reinterpret_cast<const T*>(rdy + cur * kRowSlot) + cl;
@@ -508,7 +573,9 @@ mamba_scan_bwd_kernel(
 #pragma unroll
         for (int i = 0; i < NT; ++i) {
           if constexpr (kBf16 && sizeof(T) == 4) cv[i] = scan::round_bf16(cv[i]);
-          const float a = scan::decay<kBf16>(dtv, A2[i]);
+          const float a = !kBf16 ? scan::decay(dtv, A2[i])
+                          : i & 1 ? scan::hi_f(ap[j][i / 2])
+                                  : scan::lo_f(ap[j][i / 2]);
           const float g = dyv * cv[i] + carry[i];
           gp[i * kPitch] = g;
           gb2[i & 1] += g * bv[i];

@@ -1,10 +1,15 @@
 // What the selective scan's forward (mamba_scan.cu) and backward
 // (mamba_scan_bwd.cu) kernels share: the type conversions, the exponential
 // and the state update.  The backward recomputes the forward's states with
-// scan_step, so the two kernels' states are equal bit for bit.  kBf16
-// selects the step of the bf16-scan function (mamba_scan_bf16.cu): the
-// decay and dt u B rounded to bf16, the decay by expf of dt A.
+// scan_step, so the two kernels' states are equal bit for bit.  The bf16
+// scan (mamba_scan_bf16.cu, and the backward's kBf16 variant) rounds the
+// decay and dt u B to bf16, two values a conversion (pack_bf16x2), and
+// its decay is bf16(expf(dt A)), decay2 below: expf, not ex2.approx,
+// because the reference rounds expf's value and ex2.approx's differs from
+// it in the last bits, which move a bf16 rounding near a midpoint.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,24 +50,37 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The decay a = exp(dt A) of a step: with A2 = A log2(e), one ex2.approx;
-// under kBf16, with A2 = A itself, bf16(expf(dt A)) as the reference
-// rounds it (fp32 product, exponential, then the rounding).
-template <bool kBf16 = false>
+// Two floats rounded to bf16 (ties to even) and packed, lo in the low half:
+// one conversion for two.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float lo_f(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
+// bf16(expf(xa)) and bf16(expf(xb)) packed, lo in the low half: the bf16
+// scan's decays of two states.
+__device__ __forceinline__ uint32_t decay2(float xa, float xb) {
+  return pack_bf16x2(expf(xa), expf(xb));
+}
+
+// The decay a = exp(dt A) of a step: with A2 = A log2(e), one ex2.approx.
 __device__ __forceinline__ float decay(float dt, float A2) {
-  if constexpr (kBf16) return round_bf16(expf(__fmul_rn(dt, A2)));
-  else return exp2_approx(dt * A2);
+  return exp2_approx(dt * A2);
 }
 
 // One step of a state: h <- exp(dt A) h + (dt u) B, with a = exp(dt A)
 // given; written with explicit roundings so that both kernels compute it
-// alike whatever the compiler would contract.  Under kBf16, (dt u) B is
-// rounded to bf16 first.
-template <bool kBf16 = false>
+// alike whatever the compiler would contract.
 __device__ __forceinline__ float scan_step(float a, float h, float dtu,
                                            float b) {
-  if constexpr (kBf16) return __fmaf_rn(a, h, round_bf16(__fmul_rn(dtu, b)));
-  else return __fmaf_rn(a, h, __fmul_rn(dtu, b));
+  return __fmaf_rn(a, h, __fmul_rn(dtu, b));
 }
 
 }  // namespace scan

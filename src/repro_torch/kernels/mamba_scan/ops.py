@@ -38,10 +38,11 @@ gradient of the roundings; on CPU tensors their plain versions.
 ``launch_count`` counts forward launches and ``bwd_launch_count``
 backward launches, ``bf16_launch_count`` and ``bf16_bwd_launch_count``
 those of the bf16 scan (plain integers; reset them by assigning 0), so a
-run can show that its path went through the kernels.  ``scan_plan`` and
-``bwd_plan`` (plain Python) give a launch's shape: threads a channel,
-blocks, shared memory, the blocks an SM holds at once and whether the
-grid is resident in one wave.
+run can show that its path went through the kernels.  ``scan_plan``,
+``bwd_plan`` and ``bf16_plan`` (plain Python) give a launch's shape:
+threads a channel, blocks, shared memory, the blocks an SM holds at once
+and whether the grid is resident in one wave (the bf16 scan's also its
+waves).
 """
 
 from __future__ import annotations
@@ -81,6 +82,12 @@ THREADS, CHUNK = 128, 64
 # SM its register budget promises (kMinBlocks: 128 registers a thread)
 SUB, PITCH, BWD_MIN_BLOCKS = 4, THREADS + 4, 4
 SMS, SMEM_SM, SMEM_RESERVED = 132, 233_472, 1_024
+SMEM_BLOCK = 232_448     # the most shared memory a block may use
+# csrc/mamba_scan_bf16.cu: packed pairs of states a thread walks
+# (kPairs), steps of a whole group (kGroup) and the levels it keeps in
+# registers (kLow), time steps staged at once (kStage), and the blocks an
+# SM its register budget promises (kMinBlocks)
+BF16_PAIRS, BF16_GROUP, BF16_LOW, BF16_STAGE, BF16_MIN_BLOCKS = 4, 8, 3, 16, 4
 
 
 class ScanPlan(NamedTuple):
@@ -153,11 +160,48 @@ def bwd_plan(B: int, S: int, din: int, N: int) -> BwdPlan:
                    cb * B <= SMS * per_sm)
 
 
-def bf16_split(N: int) -> int:
-    """Threads a channel of ``csrc/mamba_scan_bf16.cu``: NP / 2, NP = N
-    rounded up to a power of two, at least 2 (each thread walks a pair
-    of states)."""
-    return max(2, 1 << (N - 1).bit_length()) // 2
+class Bf16Plan(NamedTuple):
+    """A launch of the bf16 scan's forward: threads a channel
+    (``split``), the packed pairs of states a thread walks (the rest of
+    its ``BF16_PAIRS`` run on zeros), channels a block, the grid's
+    blocks, the walk's levels in shared memory, each block's shared
+    memory, the blocks an SM holds at once (shared memory and the
+    register budget), the waves the grid takes (blocks over the card's
+    resident blocks) and whether it is resident in one."""
+    split: int
+    pairs: int
+    channels: int
+    blocks: int
+    levels: int
+    smem_bytes: int
+    blocks_per_sm: int
+    waves: float
+    one_wave: bool
+
+
+def bf16_plan(B: int, S: int, din: int, N: int, chunk: int) -> Bf16Plan:
+    """The bf16 scan's launch at (B, S, din, N) and chunk C, as
+    csrc/mamba_scan_bf16.cu makes it: NP = N rounded up to a power of
+    two (at least 2); NP / 8 threads a channel where NP >= 16, each
+    walking ``BF16_PAIRS`` pairs (8 states), else one, walking the NP / 2
+    pairs there are; in shared memory the walk's levels below the top
+    one, floor(log2 C) (set once a chunk, never read), but the
+    ``BF16_LOW`` a whole group keeps in registers where ``BF16_GROUP``
+    divides C, a uint4 a level, pair and thread; (dt, dt u) of
+    ``BF16_STAGE`` steps a channel and the B and C rows of split x 8
+    floats."""
+    NP = max(2, 1 << (N - 1).bit_length())
+    split = 1 if NP <= 2 * BF16_PAIRS else NP // 8
+    channels = THREADS // split
+    levels = max(0, chunk.bit_length() - 1
+                 - (BF16_LOW if chunk % BF16_GROUP == 0 else 0))
+    smem = (16 * levels * BF16_PAIRS * THREADS + 8 * BF16_STAGE * channels
+            + 2 * 4 * BF16_STAGE * split * 2 * BF16_PAIRS)
+    blocks = -(-din // channels) * B
+    per_sm = min(BF16_MIN_BLOCKS, SMEM_SM // (smem + SMEM_RESERVED))
+    return Bf16Plan(split, min(NP // 2, BF16_PAIRS), channels, blocks,
+                    levels, smem, per_sm, blocks / (SMS * per_sm),
+                    blocks <= SMS * per_sm)
 
 
 def bwd_occupancy(N: int, dtype: torch.dtype, dt_dtype: torch.dtype) -> int:

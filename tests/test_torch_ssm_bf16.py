@@ -235,8 +235,8 @@ def test_wrapper_routes_and_checks():
     for bad in (-1, sops.MAX_BF16_CHUNK + 1):
         with pytest.raises(ValueError, match="bf16_chunk"):
             sops.mamba_scan(u, dt, Bc, Cc, Al, bad)
-    assert [sops.bf16_split(n) for n in (1, 2, 3, 8, 16, 17, 64)] == [
-        1, 1, 2, 4, 8, 16, 32]
+    assert [sops.bf16_plan(1, 1, 8, n, 8).split
+            for n in (1, 2, 3, 8, 16, 17, 64)] == [1, 1, 1, 1, 2, 4, 8]
 
 
 def test_fake_trace_runs_the_bf16_operators():
